@@ -11,18 +11,28 @@ Phases (any failure exits non-zero and prints no result line):
    inputs (bit-exact for the terrain-patch copy), and time the kernel, the
    plain version and one PyTorch library call computing the same function,
    with CUDA events.
-4. Check the card against the port's CPU path: a small rough-terrain env
-   stepped from the same state on both devices must agree
-   (go2_rl_gym_tpu_torch.tools.card_check).
+4. Check the card against the port's CPU path
+   (go2_rl_gym_tpu_torch.tools.card_check): a small rough-terrain env
+   stepped from the same state on both devices must agree, and so must one
+   full-width go2_moe_cts CTS.update (5 x 4 minibatches) from the same
+   weights, Adam states and permutations.
 5. Main path, play: the committed 75k policy's deterministic student rolls
    24 steps on the full flagship terrain at 4096 envs
    (go2_rl_gym_tpu_torch.scripts.play.play).
 6. Main path, rollout: OnPolicyRunner.rollout (24 steps, seeded init) at
    4096 envs, once untimed and once timed.
-   For 5 and 6 every launch count is set to 0 just before each run and read
-   just after; each rough-terrain policy step must launch the patch kernel
-   once, and obs and rewards must be finite.
-7. Print one JSON line listing every kernel, then the device line.
+7. Main path, train: the go2_moe_cts task built through the registry at
+   4096 envs (init at random episode lengths), one untimed train iteration
+   (OnPolicyRunner.train_step: 24-step rollout, GAE, PPO + distillation
+   update), then one timed, with rollout / GAE / update ms (each ending in
+   a synchronize) and train-iteration env-steps/s. Losses must be finite,
+   both parameter groups must have moved, the learning rate must lie in
+   [1e-5, 1e-2].
+   For 5, 6 and 7 every launch count is set to 0 just before each run and
+   read just after; each rough-terrain policy step must launch the patch
+   kernel once (24 per train iteration), and obs and rewards must be
+   finite.
+8. Print one JSON line listing every kernel, then the device line.
 """
 from __future__ import annotations
 
@@ -141,10 +151,15 @@ def phase_patch_kernel(results):
 
 def phase_cpu_agreement():
     """The card against the port's CPU path (held against the JAX package
-    by the tests): 4 rough-terrain steps from one state."""
+    by the tests): 4 rough-terrain steps from one state, and one CTS
+    update from one state."""
     from go2_rl_gym_tpu_torch.tools import card_check
     worst = card_check.env_card_vs_cpu(steps=4)
     print(f"card vs CPU path, 8 envs x 4 rough steps: max_abs_err {worst}")
+    worst = card_check.update_card_vs_cpu()
+    print(f"card vs CPU path, go2_moe_cts CTS.update (64 envs x 4 steps, "
+          f"5 x 4 minibatches): max_abs_err {worst} (atol "
+          f"{card_check.UPDATE_ATOL}, learning rates equal)")
 
 
 def kernel_modules():
@@ -230,6 +245,72 @@ def phase_rollout():
     return counts
 
 
+def phase_train():
+    import torch
+    from go2_rl_gym_tpu_torch.utils import registry
+
+    task = "go2_moe_cts"
+    env_cfg, tc = registry.get_cfgs(task)
+    env = registry.make_env(task, env_cfg, num_envs=NUM_ENVS,
+                            num_steps_per_env=tc.runner.num_steps_per_env)
+    runner = registry.make_runner(task, env, tc)
+    rs = runner.init_runner_state(tc.seed, init_at_random_ep_len=True)
+    groups0 = [[p.detach().clone() for p in g]
+               for g in runner.alg.param_groups()]
+    steps = tc.runner.num_steps_per_env
+    runs = []
+    # init_runner_state never runs the policy or the update: a first,
+    # untimed iteration takes their one-time costs out of the timed one
+    for _ in range(2):
+        timings, clock = {}, []
+
+        def mark(phase):
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter())
+            timings[phase] = (clock[-1] - clock[-2]) * 1e3
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        clock.append(time.perf_counter())
+        rs, m = runner.train_step(rs, mark=mark)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - clock[0]
+        runs.append((dt, timings, launch_counts(), m))
+    for i, (dt, timings, counts, m) in enumerate(runs):
+        print(f"train iteration {i} ({'timed' if i else 'untimed'}): "
+              f"{dt * 1e3:.1f} ms = rollout {timings['rollout']:.1f} + "
+              f"GAE {timings['gae']:.2f} + update "
+              f"{timings['update']:.1f} ms (host clock, each ending in a "
+              f"synchronize); {steps * NUM_ENVS / dt:.1f} env-steps/s; "
+              f"launches {counts}")
+        if counts["extract_patches"] != steps:
+            raise AssertionError(f"iteration {i}: extract_patches launched "
+                                 f"{counts['extract_patches']} times, want "
+                                 f"{steps}")
+    m = {k: v.detach().cpu() for k, v in runs[1][3].items()}
+    print("train metrics: " + json.dumps(
+        {k: (v.tolist() if v.dim() else float(v)) for k, v in sorted(m.items())
+         if not k.startswith("rew_")}))
+    losses = ("value_loss", "surrogate_loss", "entropy", "latent_loss",
+              "load_balance_loss")
+    bad = [k for k in losses if not bool(torch.isfinite(m[k]))]
+    if bad:
+        raise AssertionError(f"non-finite losses {bad}")
+    lr = float(m["learning_rate"])
+    if not 1e-5 <= lr <= 1e-2:
+        raise AssertionError(f"learning rate {lr} outside [1e-5, 1e-2]")
+    for i, (before, after) in enumerate(zip(groups0,
+                                            runner.alg.param_groups())):
+        moved = max(float((a.detach() - b).abs().max())
+                    for a, b in zip(after, before))
+        print(f"parameter group {i + 1}: largest move {moved:.3e}")
+        if not moved > 0:
+            raise AssertionError(f"parameter group {i + 1} did not move")
+    obs_ok = bool(torch.isfinite(rs.obs).all())
+    if not obs_ok:
+        raise AssertionError("non-finite obs after the train iterations")
+    return runs[1][2]
+
+
 def main():
     sys.path.insert(0, ROOT)
     try:
@@ -268,7 +349,8 @@ def main():
     phases = [("patch kernel", lambda: phase_patch_kernel(results)),
               ("card vs CPU", phase_cpu_agreement),
               ("play", phase_play),
-              ("rollout", phase_rollout)]
+              ("rollout", phase_rollout),
+              ("train", phase_train)]
     launches = {}
     for name, fn in phases:
         t = time.perf_counter()

@@ -1,13 +1,20 @@
 """Shared RL machinery (PyTorch port of go2_rl_gym_tpu/agents/common.py).
 
-This slice ports the rollout side only: the diagonal Gaussian log-prob.
-GAE, the clipped losses and the optimizer come with the update.
+GAE as a reverse loop over time (reference rollout_storage.py:123-137), the
+Gaussian log-prob and entropy, the clipped PPO losses, the adaptive-KL
+learning rate (reference ppo.py:139-151), and the optimizer of the JAX
+package: optax's clip-by-global-norm followed by Adam(0.9, 0.999, 1e-8), with
+a learning rate that is a 0-d tensor on the device, so that the adaptive-KL
+schedule never reads a value back to the host.
 """
 from __future__ import annotations
 
 import math
+from typing import List, NamedTuple
 
 import torch
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def gaussian_log_prob(mu, std, actions):
@@ -17,3 +24,129 @@ def gaussian_log_prob(mu, std, actions):
     logp = (-0.5 * torch.square(actions - mu) / var
             - torch.log(std) - 0.5 * math.log(2.0 * math.pi))
     return torch.sum(logp, dim=-1)
+
+
+def gaussian_entropy(std):
+    """Sum over the action dim (actor_critic.py:143-144)."""
+    return torch.sum(0.5 + 0.5 * math.log(2.0 * math.pi) + torch.log(std),
+                     dim=-1)
+
+
+def compute_gae(rewards, values, dones, last_values, gamma, lam):
+    """Generalized advantage estimation, reverse loop over T.
+
+    Args: rewards/values/dones (T, N); last_values (N,).
+    Returns (returns (T, N), advantages normalized over the whole batch
+    (T, N)). The normalization uses the population std, as JAX's
+    `jnp.std` does."""
+    T = rewards.shape[0]
+    next_values = torch.cat([values[1:], last_values[None]], dim=0)
+    not_terminal = 1.0 - dones.to(torch.float32)
+    deltas = rewards + not_terminal * gamma * next_values - values
+    adv = torch.zeros_like(last_values)
+    advs = [None] * T
+    for t in range(T - 1, -1, -1):
+        adv = deltas[t] + not_terminal[t] * gamma * lam * adv
+        advs[t] = adv
+    advs = torch.stack(advs)
+    returns = advs + values
+    norm_advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+    return returns, norm_advs
+
+
+def adaptive_kl_lr(lr, mu, sigma, old_mu, old_sigma, desired_kl):
+    """KL-driven LR update (reference ppo.py:139-151); `lr` is a 0-d tensor
+    and stays on its device. Returns (lr, kl_mean)."""
+    kl = torch.sum(
+        torch.log(sigma / old_sigma + 1e-5)
+        + (torch.square(old_sigma) + torch.square(old_mu - mu))
+        / (2.0 * torch.square(sigma)) - 0.5, dim=-1)
+    kl_mean = torch.mean(kl)
+    lr = torch.where(kl_mean > desired_kl * 2.0,
+                     torch.clamp(lr / 1.5, min=1e-5), lr)
+    lr = torch.where((kl_mean < desired_kl / 2.0) & (kl_mean > 0.0),
+                     torch.clamp(lr * 1.5, max=1e-2), lr)
+    return lr, kl_mean
+
+
+def surrogate_loss(logp, old_logp, advantages, clip_param):
+    """Per-sample clipped surrogate (reference ppo.py:154-159), not reduced."""
+    ratio = torch.exp(logp - old_logp)
+    surr = -advantages * ratio
+    surr_clipped = -advantages * torch.clamp(ratio, 1.0 - clip_param,
+                                             1.0 + clip_param)
+    return torch.maximum(surr, surr_clipped)
+
+
+def clipped_value_loss(values, old_values, returns, clip_param,
+                       use_clipped=True):
+    """Per-sample clipped value loss (reference ppo.py:162-169), not
+    reduced."""
+    if use_clipped:
+        clipped = old_values + torch.clamp(values - old_values, -clip_param,
+                                           clip_param)
+        return torch.maximum(torch.square(values - returns),
+                             torch.square(clipped - returns))
+    return torch.square(returns - values)
+
+
+# ---------------------------------------------------------------------------
+# optimizer: optax.chain(clip_by_global_norm, adam) (common.py:17-24)
+# ---------------------------------------------------------------------------
+
+
+class AdamState(NamedTuple):
+    count: torch.Tensor          # () int32, steps taken
+    mu: List[torch.Tensor]       # first moments, one per parameter
+    nu: List[torch.Tensor]       # second moments
+
+
+def adam_init(params) -> AdamState:
+    params = list(params)
+    dev = params[0].device
+    return AdamState(
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        mu=[torch.zeros_like(p, memory_format=torch.contiguous_format)
+            for p in params],
+        nu=[torch.zeros_like(p, memory_format=torch.contiguous_format)
+            for p in params])
+
+
+def clip_by_global_norm(grads, max_norm):
+    """optax.clip_by_global_norm: every gradient becomes g / norm * max_norm
+    when the global norm reaches max_norm, else stays g. `grads` are
+    modified in place and returned; the choice is made on the device."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    keep = norm < max_norm
+    one = torch.ones((), dtype=norm.dtype, device=norm.device)
+    # g / 1 * 1 is g exactly, so one division and one product serve both
+    torch._foreach_div_(grads, torch.where(keep, one, norm))
+    torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
+    return grads
+
+
+@torch.no_grad()
+def adam_step(params, grads, state: AdamState, lr, max_grad_norm):
+    """One optimizer step, in place on `params` and the moments of `state`:
+    clip by global norm, then optax's Adam with its order of operations
+    (moments, bias correction by 1 - b**count, m / (sqrt(v) + eps)), then
+    params + (-lr) * update. `lr` is a 0-d tensor on the parameters' device.
+    Returns the new state (its count advanced)."""
+    params = list(params)
+    grads = clip_by_global_norm(list(grads), max_grad_norm)
+    mu, nu = state.mu, state.nu
+    torch._foreach_mul_(mu, ADAM_B1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - ADAM_B1))
+    torch._foreach_mul_(nu, ADAM_B2)
+    torch._foreach_add_(nu, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - ADAM_B2))
+    count = state.count + 1
+    step = count.to(torch.float32)
+    mu_hat = torch._foreach_div(mu, 1 - torch.pow(ADAM_B1, step))
+    denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - torch.pow(ADAM_B2,
+                                                                   step)))
+    torch._foreach_add_(denom, ADAM_EPS)
+    updates = torch._foreach_div(mu_hat, denom)
+    torch._foreach_mul_(updates, -lr)
+    torch._foreach_add_(params, updates)
+    return AdamState(count, mu, nu)

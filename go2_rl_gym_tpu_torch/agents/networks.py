@@ -1,9 +1,13 @@
 """Policy / value networks (PyTorch port of go2_rl_gym_tpu/agents/networks.py).
 
-This slice ports the families ``moe_cts`` and ``cts``:
+The six concurrent teacher-student families:
 
-* ``CTSFamily('cts')``     <- rsl_rl/modules/actor_critic_cts.py:18-223
-* ``CTSFamily('moe_cts')`` <- rsl_rl/modules/actor_critic_moe_cts.py:20-141
+* ``CTSFamily('cts')``          <- rsl_rl/modules/actor_critic_cts.py:18-223
+* ``CTSFamily('moe_cts')``      <- rsl_rl/modules/actor_critic_moe_cts.py:20-141
+* ``CTSFamily('moe_ng_cts')``   <- rsl_rl/modules/actor_critic_moe_ng_cts.py:18-288
+* ``CTSFamily('mcp_cts')``      <- rsl_rl/modules/actor_critic_mcp_cts.py:18-292
+* ``CTSFamily('ac_moe_cts')``   <- rsl_rl/modules/actor_critic_ac_moe_cts.py:21-146
+* ``CTSFamily('dual_moe_cts')`` <- rsl_rl/modules/actor_critic_dual_moe_cts.py:20-149
 
 Module names follow the JAX package's parameter tree (teacher_encoder /
 student_encoder / actor / critic / std; MLP layers fc0, fc1, ...), so
@@ -32,9 +36,6 @@ ACTIVATIONS = {
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
 }
-
-CTS_FAMILIES = ("cts", "moe_cts")
-
 
 def l2norm(x, eps=1e-12):
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
@@ -136,11 +137,74 @@ class StudentMoEEncoder(nn.Module):
         return apply_norm(latent, self.norm_type), weights
 
 
+class StudentMoENGEncoder(nn.Module):
+    """Goal-stripped experts + full-history gating
+    (reference actor_critic_moe_ng_cts.py:185-242)."""
+
+    def __init__(self, full_dim, no_goal_dim, expert_num, hidden_dims,
+                 expert_hidden_dim, latent_dim, activation="elu",
+                 norm_type="l2norm", device=None):
+        super().__init__()
+        self.norm_type = norm_type
+        self.experts = Experts(no_goal_dim, expert_num, list(hidden_dims),
+                               expert_hidden_dim, latent_dim, activation,
+                               device)
+        self.gating = MLP(full_dim, list(hidden_dims) + [expert_num],
+                          activation, device=device)
+
+    def forward(self, full, no_goal):
+        experts = self.experts(no_goal)
+        weights = torch.softmax(self.gating(full), dim=-1)
+        latent = torch.sum(weights[..., None] * experts, dim=-2)
+        return apply_norm(latent, self.norm_type), weights
+
+
+class ActorMCP(nn.Module):
+    """Multiplicative compositional policy head
+    (reference actor_critic_mcp_cts.py:174-246): sigmoid gates over experts
+    that each give (mu, log_std), composed by precision weighting."""
+
+    def __init__(self, in_dim, no_goal_dim, action_dim, hidden_dims,
+                 expert_num=8, expert_hidden_dim=256, activation="elu",
+                 device=None):
+        super().__init__()
+        self.action_dim = action_dim
+        self.gating = MLP(in_dim, list(hidden_dims) + [expert_num],
+                          activation, device=device)
+        self.experts = Experts(no_goal_dim, expert_num, list(hidden_dims),
+                               expert_hidden_dim, 2 * action_dim, activation,
+                               device)
+
+    def forward(self, x, x_no_goal):
+        weights = torch.sigmoid(self.gating(x))                     # (B,E)
+        expert_out = self.experts(x_no_goal)
+        mu, log_std = torch.split(expert_out, self.action_dim, dim=-1)
+        log_std = torch.clamp(log_std, -5.0, 2.0)
+        var = torch.exp(2 * log_std) + 1e-9
+        w = weights[..., None]
+        inv_var_sum = torch.sum(w / var, dim=-2) + 1e-9
+        var_total = 1.0 / inv_var_sum
+        sigma = torch.sqrt(var_total)
+        mu_total = var_total * torch.sum(w * mu / var, dim=-2)
+        return mu_total, sigma, weights
+
+
+CTS_FAMILIES = ("cts", "moe_cts", "moe_ng_cts", "mcp_cts", "ac_moe_cts",
+                "dual_moe_cts")
+# families whose student encoder is a MoE on the whole history
+_STUDENT_MOE = ("moe_cts", "dual_moe_cts")
+# families whose actor is a MoE and whose critic is experts gated by it
+_AC_MOE = ("ac_moe_cts", "dual_moe_cts")
+
+
 class CTSFamily(nn.Module):
-    """Concurrent teacher-student model for the families `cts` and `moe_cts`.
+    """One module for the six concurrent teacher-student families.
 
     Encoders produce a latent, the actor consumes (latent, obs), the critic
-    consumes (latent, priv) (reference actor_critic_cts.py)."""
+    consumes (latent, priv) (reference actor_critic_cts.py); for ac_moe_cts
+    and dual_moe_cts the critic's experts are gated by the actor's gating
+    on (latent, obs). Gradient stops are the algorithm's business: this
+    module is pure."""
 
     def __init__(self, family: str, num_obs: int, num_critic_obs: int,
                  num_actions: int, history_length: int = 5,
@@ -149,11 +213,12 @@ class CTSFamily(nn.Module):
                  teacher_encoder_hidden_dims=(512, 256),
                  student_encoder_hidden_dims=(512, 256),
                  activation="elu", init_noise_std=1.0, latent_dim=32,
-                 norm_type="l2norm", expert_num=8, device=None):
+                 norm_type="l2norm", expert_num=8, obs_no_goal_mask=None,
+                 device=None):
         super().__init__()
         if family not in CTS_FAMILIES:
-            raise ValueError(f"family {family!r} is not ported; "
-                             f"ported: {CTS_FAMILIES}")
+            raise ValueError(f"unknown family {family!r}; "
+                             f"families: {CTS_FAMILIES}")
         self.family = family
         self.num_obs = num_obs
         self.history_length = history_length
@@ -161,44 +226,95 @@ class CTSFamily(nn.Module):
         self.expert_num = expert_num
         self.init_noise_std = init_noise_std
         hist_dim = num_obs * history_length
+        if obs_no_goal_mask is not None:
+            # a boolean mask with a static count: a fixed index gather
+            idx = [i for i, keep in enumerate(obs_no_goal_mask) if keep]
+            self.register_buffer(
+                "no_goal_idx", torch.tensor(idx, dtype=torch.long,
+                                            device=device), persistent=False)
+            n_ng = len(idx)
         self.teacher_encoder = MLP(
             num_critic_obs, list(teacher_encoder_hidden_dims) + [latent_dim],
             activation, device=device)
-        if family == "moe_cts":
+        if family in _STUDENT_MOE:
             self.student_encoder = StudentMoEEncoder(
                 hist_dim, expert_num, list(student_encoder_hidden_dims),
                 latent_dim, activation, norm_type, device)
+        elif family == "moe_ng_cts":
+            self.student_encoder = StudentMoENGEncoder(
+                hist_dim, n_ng * history_length, expert_num,
+                list(student_encoder_hidden_dims), 256, latent_dim,
+                activation, norm_type, device)
         else:
             self.student_encoder = MLP(
                 hist_dim, list(student_encoder_hidden_dims) + [latent_dim],
                 activation, device=device)
-        self.actor = MLP(latent_dim + num_obs,
-                         list(actor_hidden_dims) + [num_actions],
-                         activation, device=device)
-        self.critic = MLP(latent_dim + num_critic_obs,
-                          list(critic_hidden_dims) + [1], activation,
-                          device=device)
-        self.std = nn.Parameter(torch.empty((num_actions,), device=device))
+
+        actor_in = latent_dim + num_obs
+        if family == "mcp_cts":
+            # the reference passes the full actor_hidden_dims to ActorMCP
+            # (actor_critic_mcp_cts.py:91-98)
+            self.actor = ActorMCP(actor_in, latent_dim + n_ng, num_actions,
+                                  list(actor_hidden_dims), expert_num, 256,
+                                  activation, device)
+        elif family in _AC_MOE:
+            self.actor = MoE(actor_in, expert_num, list(actor_hidden_dims),
+                             num_actions, activation, device)
+        else:
+            self.actor = MLP(actor_in, list(actor_hidden_dims) + [num_actions],
+                             activation, device=device)
+
+        critic_in = latent_dim + num_critic_obs
+        if family in _AC_MOE:
+            self.critic = Experts(critic_in, expert_num,
+                                  list(critic_hidden_dims)[:-1],
+                                  critic_hidden_dims[-1], 1, activation,
+                                  device)
+        else:
+            self.critic = MLP(critic_in, list(critic_hidden_dims) + [1],
+                              activation, device=device)
+        if family != "mcp_cts":
+            self.std = nn.Parameter(torch.empty((num_actions,), device=device))
 
     def t_latent(self, priv):
         """Teacher latent from privileged obs."""
         return apply_norm(self.teacher_encoder(priv), self.norm_type)
 
     def s_latent(self, history):
-        """Student latent from flattened obs history. Returns (latent,
-        gate_w); gate_w is None for the non-MoE student."""
-        if self.family == "moe_cts":
+        """Student latent from the flattened obs history. Returns (latent,
+        gate_w); gate_w is None for the non-MoE students."""
+        if self.family in _STUDENT_MOE:
             return self.student_encoder(history)
+        if self.family == "moe_ng_cts":
+            B = history.shape[:-1]
+            hist = history.reshape(B + (self.history_length, self.num_obs))
+            no_goal = hist.index_select(-1, self.no_goal_idx).reshape(B + (-1,))
+            return self.student_encoder(history, no_goal)
         return apply_norm(self.student_encoder(history), self.norm_type), None
 
     def dist(self, latent, obs):
-        """Action distribution. Returns (mu, std, None)."""
-        mu = self.actor(torch.cat([latent, obs], dim=-1))
+        """Action distribution. Returns (mu, std, actor_gate_w or None)."""
+        x = torch.cat([latent, obs], dim=-1)
+        if self.family == "mcp_cts":
+            x_ng = torch.cat([latent, obs.index_select(-1, self.no_goal_idx)],
+                             dim=-1)
+            return self.actor(x, x_ng)
+        if self.family in _AC_MOE:
+            mu, w = self.actor(x)
+            return mu, self.std.expand(mu.shape), w
+        mu = self.actor(x)
         return mu, self.std.expand(mu.shape), None
 
-    def val(self, latent, priv):
-        """Value. Returns (value, None)."""
-        return self.critic(torch.cat([latent, priv], dim=-1))[..., 0], None
+    def val(self, latent, priv, obs=None):
+        """Value. For ac_moe_cts / dual_moe_cts the expert values are
+        weighted by the actor's gating on (latent, obs). Returns (value,
+        gate_w or None)."""
+        x = torch.cat([latent, priv], dim=-1)
+        if self.family in _AC_MOE:
+            _, w = self.actor(torch.cat([latent, obs], dim=-1))
+            expert_v = self.critic(x)[..., 0]           # (B, E)
+            return torch.sum(w * expert_v, dim=-1), w
+        return self.critic(x)[..., 0], None
 
 
 @torch.no_grad()
@@ -219,7 +335,7 @@ def init_params(model: nn.Module, gen: torch.Generator):
             bound = 1.0 / math.sqrt(m.H)
             uniform_(m.head_kernel, bound)
             uniform_(m.head_bias, bound)
-    if isinstance(model, CTSFamily):
+    if isinstance(model, CTSFamily) and hasattr(model, "std"):
         model.std.fill_(model.init_noise_std)
     return model
 
@@ -229,6 +345,11 @@ def make_cts_model(family: str, num_obs: int, num_critic_obs: int,
                    device=None):
     """Factory from a PolicyCfg (env/config.py). The parameters are left
     uninitialised: fill them with init_params or export/importer."""
+    if (family in ("moe_ng_cts", "mcp_cts")
+            and policy_cfg.obs_no_goal_mask is None):
+        # without the mask the goal-stripped expert input is zero-width and
+        # the latent silently NaNs (fan_in 0): fail loudly instead
+        raise ValueError(f"{family} requires policy_cfg.obs_no_goal_mask")
     return CTSFamily(
         family, num_obs, num_critic_obs, num_actions, history_length,
         actor_hidden_dims=tuple(policy_cfg.actor_hidden_dims),
@@ -238,4 +359,7 @@ def make_cts_model(family: str, num_obs: int, num_critic_obs: int,
         activation=policy_cfg.activation,
         init_noise_std=policy_cfg.init_noise_std,
         latent_dim=policy_cfg.latent_dim, norm_type=policy_cfg.norm_type,
-        expert_num=policy_cfg.expert_num, device=device)
+        expert_num=(policy_cfg.student_expert_num
+                    if family in ("moe_ng_cts", "mcp_cts")
+                    else policy_cfg.expert_num),
+        obs_no_goal_mask=policy_cfg.obs_no_goal_mask, device=device)

@@ -14,7 +14,8 @@ Two sources:
   Modules absent from the file (a deploy artifact has no teacher or critic)
   keep their current weights.
 
-Only the families ported so far, ``moe_cts`` and ``cts``, are mapped.
+``params_from_jax`` and its inverse ``tree_from_named`` cover all six CTS
+families; the reference ``.pt`` naming is mapped for ``moe_cts`` and ``cts``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from go2_rl_gym_tpu_torch.agents.networks import MLP, CTSFamily, Experts
+from go2_rl_gym_tpu_torch.agents.networks import CTSFamily
 
 # ---------------------------------------------------------------------------
 # torch -> numpy tensor collection
@@ -180,40 +181,78 @@ def _copy(dst: torch.Tensor, src):
     dst.copy_(src.to(dst.device))
 
 
-def _load_mlp(mlp: MLP, tree: Dict):
-    if len(tree) != mlp.n:
-        raise ValueError(f"MLP has {mlp.n} layers, tree has {len(tree)}")
-    for i in range(mlp.n):
-        layer = getattr(mlp, f"fc{i}")
-        _copy(layer.weight, np.asarray(tree[f"fc{i}"]["kernel"]).T)
-        _copy(layer.bias, tree[f"fc{i}"]["bias"])
+def _tree_path(name: str):
+    """A parameter's name in the port -> its path in the JAX tree and
+    whether it is a Linear weight (torch (out, in), flax kernel (in, out)).
+    The port's module names are the JAX package's, so only the leaf of a
+    Linear changes name."""
+    parts = tuple(name.split("."))
+    if parts[-1] == "weight":
+        return parts[:-1] + ("kernel",), True
+    return parts, False
 
 
-def _load_experts(experts: Experts, tree: Dict):
-    _load_mlp(experts.backbone, tree["backbone"])
-    _copy(experts.head_kernel, tree["head_kernel"])
-    _copy(experts.head_bias, tree["head_bias"])
+def _flatten(tree: Dict, prefix=()) -> Dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def tree_from_named(named) -> Dict:
+    """``{"params": tree}`` of numpy arrays in the JAX package's layout from
+    (name, tensor) pairs named as the model's parameters: the parameters
+    themselves (``model.named_parameters()``), or an optimizer moment zipped
+    with its group's names. The inverse of ``params_from_jax``."""
+    tree: Dict = {}
+    for name, t in named:
+        path, transpose = _tree_path(name)
+        a = t.detach().cpu().numpy()
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a.T.copy() if transpose else a.copy()
+    return {"params": tree}
+
+
+def tensors_from_tree(names, tree: Dict, device=None):
+    """The arrays of a JAX-layout tree (``{"params": ...}`` or bare) as
+    tensors, one per name in `names` (port parameter names): a JAX
+    CTSTrainState's ``params1`` / ``params2`` or an Adam moment of either,
+    lined up with ``cts.split_params``'s groups."""
+    flat = _flatten(tree["params"] if "params" in tree else tree)
+    out = []
+    for name in names:
+        path, transpose = _tree_path(name)
+        a = np.asarray(flat[path], np.float32)
+        out.append(torch.as_tensor(np.ascontiguousarray(a.T if transpose
+                                                        else a),
+                                   device=device))
+    return out
 
 
 @torch.no_grad()
 def params_from_jax(tree: Dict, model: CTSFamily) -> CTSFamily:
     """Load the JAX package's ``{"params": CTSFamily tree}`` (nested dicts of
-    numpy arrays) into `model`. Modules absent from the tree are left as
-    they are; a module present with other shapes raises."""
+    numpy arrays) into `model`, for any of the six families. A top-level
+    module absent from the tree is left as it is; a module present with
+    other entries or other shapes raises."""
     p = tree["params"] if "params" in tree else tree
-    for name in ("teacher_encoder", "actor", "critic"):
-        if name in p:
-            _load_mlp(getattr(model, name), p[name])
-    if "student_encoder" in p:
-        se = p["student_encoder"]
-        if model.family == "moe_cts":
-            _load_experts(model.student_encoder.moe.experts,
-                          se["moe"]["experts"])
-            _load_mlp(model.student_encoder.moe.gating, se["moe"]["gating"])
-        else:
-            _load_mlp(model.student_encoder, se)
-    if "std" in p:
-        _copy(model.std, p["std"])
+    flat = _flatten(p)
+    for name, param in model.named_parameters():
+        path, transpose = _tree_path(name)
+        if path[0] not in p:
+            continue
+        if path not in flat:
+            raise ValueError(f"{'/'.join(path)} is missing from the tree")
+        src = np.asarray(flat.pop(path))
+        _copy(param, src.T if transpose else src)
+    if flat:
+        raise ValueError(f"the model has no parameter for "
+                         f"{sorted('/'.join(k) for k in flat)}")
     return model
 
 

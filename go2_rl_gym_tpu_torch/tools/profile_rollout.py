@@ -17,11 +17,22 @@ Builds the flagship env (full rough terrain) and the go2_moe_cts runner at
 per step of window 3 over the unprofiled step time of window 2. No single
 window measures the idle share of an unprofiled step.
 
+With `--train`, it splits whole train iterations instead (after one
+untimed iteration):
+
+1. one iteration's rollout / GAE / update by CUDA events recorded between
+   the phases (`*_event_ms`), and the host clock around the iteration;
+2. one iteration under torch.profiler: its kernel launches and device busy
+   time over its wall time;
+3. one more iteration with the profiler on for the update only: the
+   update's launches and its device busy share (busy time over the
+   update's wall time).
+
 Prints one JSON object as its last line.
 
 Usage:
     python -m go2_rl_gym_tpu_torch.tools.profile_rollout [--num_envs 4096]
-        [--steps 3]
+        [--steps 3] [--train]
 """
 from __future__ import annotations
 
@@ -56,11 +67,84 @@ def _device_us(evt):
     return 0.0
 
 
+def _kernels(prof):
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_train(runner, rs, top):
+    """See the module docstring, `--train`."""
+    N, T = runner.env.num_envs, runner.num_steps
+    rs, _ = runner.train_step(rs)        # untimed: first-call costs
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    # 1. CUDA events between the phases, host clock around the iteration
+    events = []
+
+    def record(_):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    record("start")
+    rs, _ = runner.train_step(rs, mark=record)
+    torch.cuda.synchronize()
+    iter_ms = (time.perf_counter() - t0) * 1e3
+    parts = {f"{name}_event_ms": events[i].elapsed_time(events[i + 1])
+             for i, name in enumerate(("rollout", "gae", "update"))}
+
+    # 2. the whole iteration under the profiler
+    tp.LAUNCHES["extract_patches"] = 0
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs, _ = runner.train_step(rs)
+        torch.cuda.synchronize()
+        wall = {"iteration": (time.perf_counter() - t0) * 1e3}
+    patch_launches = tp.LAUNCHES["extract_patches"]
+
+    # 3. the update alone under the profiler, in one more iteration (the
+    # profiler starts and stops at the phase marks)
+    prof_up = torch.profiler.profile(activities=acts)
+    clock = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        clock[name] = time.perf_counter()
+        if name == "gae":
+            prof_up.start()
+        elif name == "update":
+            prof_up.stop()
+    runner.train_step(rs, mark=mark)
+    wall["update"] = (clock["update"] - clock["gae"]) * 1e3
+
+    kernels = {"iteration": _kernels(prof), "update": _kernels(prof_up)}
+    busy = {k: sum(_device_us(e) for e in v) / 1e3 for k, v in kernels.items()}
+    top_up = sorted(kernels["update"], key=_device_us, reverse=True)[:top]
+    result = dict(
+        device=torch.cuda.get_device_name(0), num_envs=N, steps=T,
+        iteration_ms=iter_ms, env_steps_per_s=N * T / iter_ms * 1e3, **parts,
+        profiled_wall_ms=wall, device_busy_ms=busy,
+        device_busy_share={k: busy[k] / wall[k] for k in wall},
+        kernel_launches={k: sum(e.count for e in v)
+                         for k, v in kernels.items()},
+        patch_kernel_launches_per_iteration=patch_launches,
+        top_update_kernels=[dict(name=e.key[:90], calls=e.count,
+                                 device_ms=_device_us(e) / 1e3)
+                            for e in top_up])
+    for k in result["top_update_kernels"]:
+        print(f"{k['device_ms']:9.3f} ms  {k['calls']:6d}  {k['name']}")
+    print(json.dumps(result))
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--num_envs", type=int, default=4096)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--train", action="store_true",
+                   help="split whole train iterations instead of steps")
     args = p.parse_args()
 
     cfg = Go2Cfg()
@@ -69,6 +153,8 @@ def main():
     env = Go2Env(cfg, num_steps_per_env=tc.runner.num_steps_per_env)
     runner = OnPolicyRunner(env, tc)
     rs = runner.init_runner_state(seed=0)
+    if args.train:
+        return profile_train(runner, rs, args.top)
     alg = runner.alg
     N = env.num_envs
     state, obs, priv, hist = rs.env_state, rs.obs, rs.priv_obs, rs.history
@@ -115,8 +201,7 @@ def main():
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _kernels(prof)
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:args.top]

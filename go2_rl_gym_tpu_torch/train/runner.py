@@ -1,21 +1,36 @@
-"""On-policy runner, rollout half (PyTorch port of go2_rl_gym_tpu/train/runner.py).
+"""On-policy runner for the CTS algorithms
+(PyTorch port of go2_rl_gym_tpu/train/runner.py).
 
-Counterpart of reference rsl_rl/runners/on_policy_runner_cts.py:63-355. This
-slice ports the runner state, its initialisation (with the zero-action first
-step) and the 24-step rollout with the student's obs-history buffer; GAE and
-the PPO + distillation update come with the next slice.
+Counterpart of reference rsl_rl/runners/on_policy_runner_cts.py:63-355. One
+train iteration (`train_step`) is the 24-step rollout with the student's
+obs-history buffer, GAE, and the PPO + distillation update; `learn` loops
+over iterations on the host, logs, and checkpoints.
+
+Where the state lives: everything the env and the rollout carry is in
+`RunnerState`; the train state (the model's parameters, both Adam states,
+the adaptive learning rate) lives in the runner's algorithm object
+(`runner.alg`, agents/cts.py), whose parameters are updated in place.
+`save` writes both, so `load` resumes exactly.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import dataclasses
+import os
+import time
+from collections import deque
+from typing import Callable, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
+import yaml
 
+from go2_rl_gym_tpu_torch.agents import common
 from go2_rl_gym_tpu_torch.agents import cts as cts_lib
 from go2_rl_gym_tpu_torch.agents.networks import init_params
 from go2_rl_gym_tpu_torch.device import resolve_device
 from go2_rl_gym_tpu_torch.env.config import TrainCfg
 from go2_rl_gym_tpu_torch.env.go2_env import EnvState, Go2Env
+from go2_rl_gym_tpu_torch.train.metrics import MetricsWriter
 
 
 class RunnerState(NamedTuple):
@@ -23,7 +38,7 @@ class RunnerState(NamedTuple):
     obs: torch.Tensor
     priv_obs: torch.Tensor
     history: torch.Tensor            # (N, L, num_obs)
-    gen: torch.Generator             # action noise
+    gen: torch.Generator             # action noise and the update's shuffle
     # episode bookkeeping (reference on_policy_runner.py:142-143)
     cur_reward_sum: torch.Tensor     # (N,)
     cur_episode_length: torch.Tensor  # (N,)
@@ -35,6 +50,7 @@ class Rollout(NamedTuple):
     # [teacher reward sum, teacher length sum, teacher episodes,
     #  student reward sum, student length sum, student episodes]
     ep_stats: torch.Tensor           # (6,) over episodes ended in the rollout
+    metrics: Dict[str, torch.Tensor]  # env metrics, (T,) per name
 
 
 def _split_seed(seed: int, n: int):
@@ -43,19 +59,53 @@ def _split_seed(seed: int, n: int):
     return [int(s) for s in torch.randint(0, 2 ** 62, (n,), generator=g)]
 
 
+def _pack(tree):
+    """A RunnerState as nested dicts of tensors (torch.save-able with
+    weights_only): generators become their states, NamedTuples dicts."""
+    if isinstance(tree, torch.Generator):
+        return {"generator_state": tree.get_state()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {k: _pack(v) for k, v in zip(tree._fields, tree)}
+    if isinstance(tree, dict):
+        return {k: _pack(v) for k, v in tree.items()}
+    return tree
+
+
+def _unpack(template, data, device):
+    """Inverse of `_pack`, shaped by `template` (a RunnerState of the same
+    runner); generators are made anew on their template's device."""
+    if isinstance(template, torch.Generator):
+        g = torch.Generator(device=template.device)
+        g.set_state(data["generator_state"])
+        return g
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*[_unpack(getattr(template, k), data[k], device)
+                                for k in template._fields])
+    if isinstance(template, dict):
+        return {k: _unpack(template[k], data[k], device) for k in template}
+    return data.to(device)
+
+
 class OnPolicyRunner:
-    """Runner for the ported CTS variants (selected by train_cfg.runner).
+    """Runner for the six CTS variants (selected by train_cfg.runner).
 
-    `device` defaults to the card and must be the env's device."""
+    `device` defaults to the card and must be the env's device. With a
+    `log_dir`, `learn` writes metrics and checkpoints there."""
 
-    def __init__(self, env: Go2Env, train_cfg: TrainCfg, device="cuda"):
+    def __init__(self, env: Go2Env, train_cfg: TrainCfg,
+                 log_dir: Optional[str] = None, device="cuda",
+                 eval_interval: int = 0):
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env lives on {env.device}, runner on "
                              f"{self.device}")
         self.env = env
         self.cfg = train_cfg
+        self.log_dir = log_dir
+        # the async sim2sim eval hook is not ported; learn refuses it
+        self.eval_interval = eval_interval
         self.num_steps = train_cfg.runner.num_steps_per_env
+        self.save_interval = train_cfg.runner.save_interval
         self.history_length = train_cfg.history_length
         num_critic_obs = env.num_privileged_obs or env.num_obs
         self.alg = cts_lib.CTS(
@@ -63,18 +113,34 @@ class OnPolicyRunner:
             env.num_obs, num_critic_obs, env.num_actions, env.num_envs,
             train_cfg.history_length, train_cfg.policy, train_cfg.algorithm,
             device=self.device)
+        self.current_iteration = 0
+        self.tot_timesteps = 0
+        self.tot_time = 0.0
+        self.writer = MetricsWriter(log_dir) if log_dir else None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, "config.yaml"), "w") as f:
+                yaml.safe_dump({
+                    "train_cfg": dataclasses.asdict(train_cfg),
+                    "env_cfg": dataclasses.asdict(env.cfg),
+                }, f)
+
+    def attach_mesh(self, *args, **kwargs):
+        raise NotImplementedError(
+            "data-parallel training is not ported to go2_rl_gym_tpu_torch yet")
 
     def init_runner_state(self, seed: int = 0,
                           init_at_random_ep_len=False) -> RunnerState:
-        """Seeded env state, policy weights and noise generator, then the
-        first observation via a zero-action step (reference BaseTask.reset,
-        base_task.py:72-77)."""
+        """Seeded env state, policy weights (with a fresh train state) and
+        noise generator, then the first observation via a zero-action step
+        (reference BaseTask.reset, base_task.py:72-77)."""
         env = self.env
         N = env.num_envs
         s_env, s_alg, s_run = _split_seed(seed, 3)
         alg_gen = torch.Generator(device=self.device)
         alg_gen.manual_seed(s_alg)
         init_params(self.alg.model, alg_gen)
+        self.alg.reset_train_state()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(s_run)
 
@@ -97,6 +163,8 @@ class OnPolicyRunner:
             cur_reward_sum=torch.zeros(N, device=self.device),
             cur_episode_length=torch.zeros(N, device=self.device))
 
+    # ------------------------------------------------------------------
+
     @torch.no_grad()
     def rollout(self, rs: RunnerState,
                 noise: Optional[torch.Tensor] = None):
@@ -110,7 +178,7 @@ class OnPolicyRunner:
         obs, priv, history = rs.obs, rs.priv_obs, rs.history
         env_state = rs.env_state
         rew_sum, ep_len = rs.cur_reward_sum, rs.cur_episode_length
-        steps, ep_stats = [], []
+        steps, ep_stats, metrics = [], [], []
         for t in range(self.num_steps):
             hist_flat = history.reshape(N, -1)
             actions, values, logp, mu, std = alg.act(
@@ -139,11 +207,191 @@ class OnPolicyRunner:
             rew_sum = rew_sum * (1.0 - done_f)
             ep_len = ep_len * (1.0 - done_f)
             obs, priv = out.obs, out.privileged_obs
+            metrics.append(out.metrics)
 
         last_values = alg.value(obs, priv, history.reshape(N, -1))
         traj = cts_lib.Transition(*[torch.stack(xs) for xs in zip(*steps)])
         new_rs = rs._replace(env_state=env_state, obs=obs, priv_obs=priv,
                              history=history, cur_reward_sum=rew_sum,
                              cur_episode_length=ep_len)
-        return new_rs, Rollout(traj=traj, last_values=last_values,
-                               ep_stats=torch.stack(ep_stats).sum(dim=0))
+        return new_rs, Rollout(
+            traj=traj, last_values=last_values,
+            ep_stats=torch.stack(ep_stats).sum(dim=0),
+            metrics={k: torch.stack([m[k] for m in metrics])
+                     for k in metrics[0]})
+
+    def train_step(self, rs: RunnerState,
+                   noise: Optional[torch.Tensor] = None, perms=None,
+                   mark: Optional[Callable[[str], None]] = None):
+        """One train iteration: rollout, GAE, update (JAX runner.py:182-295).
+
+        `noise` is passed to `rollout` and `perms` to `CTS.update` (both
+        drawn from rs.gen when not given). `mark`, if given, is called with
+        "rollout", "gae" and "update" as each phase has been issued, for
+        timing (it may synchronize the device). Returns (RunnerState,
+        metrics as tensors on the device): env metrics, `rew_*` and
+        `done_count` summed over the rollout and the others averaged,
+        `ep_stats` summed, the update's losses and learning rate, and
+        `mean_noise_std` where the family has a `std` parameter."""
+        mark = mark or (lambda phase: None)
+        rs, ro = self.rollout(rs, noise)
+        mark("rollout")
+        traj = ro.traj
+        cfg = self.cfg.algorithm
+        returns, advantages = common.compute_gae(
+            traj.rewards, traj.values, traj.dones, ro.last_values, cfg.gamma,
+            cfg.lam)
+        mark("gae")
+        loss_metrics = self.alg.update(traj, returns, advantages, gen=rs.gen,
+                                       perms=perms)
+        mark("update")
+
+        agg = {}
+        for name, vals in ro.metrics.items():
+            if name.startswith("rew_") or name == "done_count":
+                agg[name] = torch.sum(vals)
+            else:
+                agg[name] = torch.mean(vals)
+        agg["ep_stats"] = ro.ep_stats
+        agg.update(loss_metrics)
+        if hasattr(self.alg.model, "std"):
+            agg["mean_noise_std"] = torch.mean(self.alg.model.std.detach())
+        return rs, agg
+
+    # ------------------------------------------------------------------
+
+    def learn(self, rs: RunnerState, num_iterations: int,
+              log_every: int = 10, print_every: int = 50) -> RunnerState:
+        """`num_iterations` train iterations from `current_iteration`. The
+        metrics of an iteration reach the host once, as one stacked tensor.
+        Logs every `log_every` iterations (and the last), prints every
+        `print_every`, saves model_<it>.pt after iteration <it> when <it> is
+        a multiple of save_interval, and the final model_<end>.pt (JAX
+        runner.py:337-463, without its chunked dispatch)."""
+        if self.eval_interval:
+            raise NotImplementedError(
+                "the sim2sim eval hook is not ported to go2_rl_gym_tpu_torch "
+                "yet")
+        rewbuffer = deque(maxlen=100)
+        lenbuffer = deque(maxlen=100)
+        srewbuffer = deque(maxlen=100)
+        slenbuffer = deque(maxlen=100)
+        start_iter = self.current_iteration
+        tot_iter = start_iter + num_iterations
+        do_save = bool(self.log_dir and self.save_interval)
+        keys = sizes = None
+        t_window = time.time()
+        for it in range(start_iter, tot_iter):
+            rs, m = self.train_step(rs)
+            if keys is None:
+                keys = sorted(m)
+                sizes = [m[k].numel() for k in keys]
+                offs = np.cumsum([0] + sizes)
+            row = torch.cat([m[k].to(torch.float32).reshape(-1)
+                             for k in keys]).cpu().numpy()
+            self.tot_timesteps += self.num_steps * self.env.num_envs
+            self.current_iteration = it + 1
+            now = time.time()
+            dt_iter = now - t_window
+            self.tot_time += dt_iter
+            t_window = now
+            pmetrics = {k: row[offs[i]] if sizes[i] == 1
+                        else row[offs[i]:offs[i + 1]]
+                        for i, k in enumerate(keys)}
+            ep = pmetrics.pop("ep_stats")
+            if ep[2] > 0:
+                rewbuffer.append(ep[0] / ep[2])
+                lenbuffer.append(ep[1] / ep[2])
+            if ep[5] > 0:
+                srewbuffer.append(ep[3] / ep[5])
+                slenbuffer.append(ep[4] / ep[5])
+            if self.writer and (it % log_every == 0 or it == tot_iter - 1):
+                self._log(it, dict(pmetrics), dt_iter, rewbuffer, lenbuffer,
+                          srewbuffer, slenbuffer)
+            if it % print_every == 0:
+                fps = int(self.num_steps * self.env.num_envs / dt_iter)
+                mr = np.mean(rewbuffer) if rewbuffer else float("nan")
+                print(
+                    f"it {it}/{tot_iter} | {fps} steps/s | "
+                    f"mean_rew {mr:.3f} | "
+                    f"vloss {float(pmetrics.get('value_loss', 0)):.4f} | "
+                    f"surr "
+                    f"{float(pmetrics.get('surrogate_loss', 0)):.4f}",
+                    flush=True)
+            if do_save and it % self.save_interval == 0:
+                self.save(rs, os.path.join(self.log_dir, f"model_{it}.pt"))
+                t_window = time.time()   # exclude the save from timing
+        if self.log_dir:
+            self.save(rs, os.path.join(
+                self.log_dir, f"model_{self.current_iteration}.pt"))
+        return rs
+
+    def _log(self, it, metrics, dt_iter, rewbuffer, lenbuffer, srew, slen):
+        w = self.writer
+        fps = int(self.num_steps * self.env.num_envs / dt_iter)
+        done_count = float(metrics.pop("done_count", 0.0))
+        for name, val in metrics.items():
+            if name.startswith("rew_"):
+                if done_count > 0:
+                    w.add_scalar(f"Episode/{name}", float(val) / done_count, it)
+            elif name.startswith("terrain_level"):
+                w.add_scalar(f"Terrain/{name}", float(val), it)
+            elif name == "mean_noise_std":
+                w.add_scalar("Policy/mean_noise_std", float(val), it)
+            elif name == "learning_rate":
+                w.add_scalar("Loss/learning_rate", float(val), it)
+            elif name.endswith("loss") or name == "entropy":
+                w.add_scalar(f"Loss/{name.replace('_loss', '')}", float(val), it)
+            else:
+                w.add_scalar(f"Train/{name}", float(val), it)
+        w.add_scalar("Perf/total_fps", fps, it)
+        w.add_scalar("Perf/iteration_time", dt_iter, it)
+        if rewbuffer:
+            w.add_scalar("Train/mean_teacher_reward", np.mean(rewbuffer), it)
+            w.add_scalar("Train/mean_teacher_episode_length",
+                         np.mean(lenbuffer), it)
+        if srew:
+            w.add_scalar("Train/mean_student_reward", np.mean(srew), it)
+            w.add_scalar("Train/mean_student_episode_length",
+                         np.mean(slen), it)
+        w.flush()
+
+    # ------------------------------------------------------------------
+
+    def save(self, rs: RunnerState, path: str):
+        """Checkpoint everything (torch.save): the train state (parameters,
+        both Adam states, the learning rate), the runner state (env state
+        with its generator, obs, history, episode sums, the noise
+        generator) and the iteration, so that `load` resumes exactly."""
+        torch.save({"iteration": self.current_iteration,
+                    "train_state": self.alg.train_state_dict(),
+                    "runner_state": _pack(rs)}, path)
+
+    def load(self, rs: RunnerState, path: str) -> RunnerState:
+        """Restore a checkpoint of `save` into this runner's train state;
+        returns the saved RunnerState, shaped like `rs` (this runner's, of
+        the same env count)."""
+        # on the CPU first: a generator's state must be a CPU tensor, and
+        # every other tensor is moved to the device as it is restored
+        ck = torch.load(path, map_location="cpu", weights_only=True)
+        n = ck["runner_state"]["obs"].shape[0]
+        if n != self.env.num_envs:
+            raise ValueError(f"checkpoint has {n} envs, the runner "
+                             f"{self.env.num_envs}; use load_params")
+        self.alg.load_train_state_dict(ck["train_state"])
+        self.current_iteration = int(ck["iteration"])
+        return _unpack(rs, ck["runner_state"], self.device)
+
+    def load_params(self, path: str) -> Dict[str, torch.Tensor]:
+        """Restore ONLY the model parameters of a checkpoint, whatever its
+        env count (the play/eval path: a 4096-env training checkpoint loads
+        into a 16-env session, reference play.py:38-40). Returns
+        get_inference_params()."""
+        ck = torch.load(path, map_location="cpu", weights_only=True)
+        self.alg.model.load_state_dict(ck["train_state"]["model"])
+        return self.get_inference_params()
+
+    def get_inference_params(self) -> Dict[str, torch.Tensor]:
+        """A copy of the model's parameters by name (both groups)."""
+        return {k: p.detach().clone()
+                for k, p in self.alg.model.named_parameters()}

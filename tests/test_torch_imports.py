@@ -59,7 +59,32 @@ def test_guard_flags_the_old_package():
 
 def test_entry_points_default_to_the_card():
     from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+    from go2_rl_gym_tpu_torch.scripts import train
     from go2_rl_gym_tpu_torch.scripts.play import play
     from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
-    for fn in (Go2Env.__init__, OnPolicyRunner.__init__, play):
+    from go2_rl_gym_tpu_torch.utils import registry
+    for fn in (Go2Env.__init__, OnPolicyRunner.__init__, play,
+               registry.make_env, registry.make_runner):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert train.get_args([]).device == "cuda"
+    # train_step and learn run on the runner's device, the card by default
+    assert "device" not in inspect.signature(OnPolicyRunner.train_step).parameters
+    assert "device" not in inspect.signature(OnPolicyRunner.learn).parameters
+
+
+def test_train_entry_points_raise_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device works")
+    from go2_rl_gym_tpu_torch.scripts import train
+    from go2_rl_gym_tpu_torch.utils import registry
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--task", "go2_moe_cts", "--num_envs", "8",
+                    "--terrain", "plane"])
+    cfg, _ = registry.get_cfgs("go2_cts")
+    cfg.terrain.mesh_type = "plane"
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.make_env("go2_cts", cfg, num_envs=8)
+    env = registry.make_env("go2_cts", cfg, num_envs=8, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        registry.make_runner("go2_cts", env)

@@ -1,5 +1,6 @@
 """PyTorch port on the card: the hand-written CUDA kernels against their
-plain versions, and the card's env path against the CPU path.
+plain versions, the card's env step and CTS update against the CPU path,
+and a checkpoint of a run on the card restored on the card.
 
 Every test here is marked `gpu` and skips itself without a card. The file
 imports torch only, so it runs on a machine without JAX:
@@ -74,3 +75,56 @@ def test_env_on_card_matches_cpu():
     before = tp.LAUNCHES["extract_patches"]
     card_check.env_card_vs_cpu(steps=4)
     assert tp.LAUNCHES["extract_patches"] == before + 4
+
+
+@pytest.mark.gpu
+def test_update_on_card_matches_cpu():
+    """One full-width go2_moe_cts CTS.update (5 x 4 minibatches) from the
+    same state on both devices (card_check.update_card_vs_cpu)."""
+    _card()
+    worst = card_check.update_card_vs_cpu()
+    assert max(worst.values()) <= card_check.UPDATE_ATOL
+
+
+def _card_runner(num_envs=8):
+    from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
+    from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+    from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
+    cfg = Go2Cfg()
+    cfg.env.num_envs = num_envs
+    cfg.terrain.mesh_type = "plane"
+    cfg.terrain.measure_heights = False
+    cfg.terrain.curriculum = False
+    tc = go2_moe_cts_train_cfg()
+    tc.runner.num_steps_per_env = 4
+    return OnPolicyRunner(Go2Env(cfg, num_steps_per_env=4), tc)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(tmp_path):
+    """save after a train iteration on the card, load into a fresh runner
+    on the card: every tensor of the train and runner state, and both
+    generators' states, come back equal."""
+    _card()
+    a = _card_runner()
+    rs, _ = a.train_step(a.init_runner_state(0, init_at_random_ep_len=True))
+    path = str(tmp_path / "model_1.pt")
+    a.save(rs, path)
+    b = _card_runner()
+    rs_b = b.load(b.init_runner_state(5), path)
+    for x, y in zip(a.alg.model.state_dict().values(),
+                    b.alg.model.state_dict().values()):
+        assert torch.equal(x, y)
+    for o, p in ((a.alg.opt1, b.alg.opt1), (a.alg.opt2, b.alg.opt2)):
+        assert torch.equal(o.count, p.count)
+        assert all(torch.equal(u, v) for u, v in zip(o.mu + o.nu,
+                                                     p.mu + p.nu))
+    assert torch.equal(a.alg.lr, b.alg.lr) and b.alg.lr.is_cuda
+    assert torch.equal(rs.gen.get_state(), rs_b.gen.get_state())
+    assert torch.equal(rs.env_state.gen.get_state(),
+                       rs_b.env_state.gen.get_state())
+    assert rs_b.gen.device.type == "cuda" and rs_b.obs.is_cuda
+    for x, y in ((rs.obs, rs_b.obs), (rs.history, rs_b.history),
+                 (rs.env_state.sim.q, rs_b.env_state.sim.q)):
+        assert torch.equal(x, y)
+    b.train_step(rs_b)                   # and it trains on
