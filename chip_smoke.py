@@ -14,8 +14,9 @@ Phases (any failure exits non-zero and prints no result line):
 4. Check the card against the port's CPU path
    (go2_rl_gym_tpu_torch.tools.card_check): a small rough-terrain env
    stepped from the same state on both devices must agree, and so must one
-   full-width go2_moe_cts CTS.update (5 x 4 minibatches) from the same
-   weights, Adam states and permutations.
+   full-width update (5 x 4 minibatches) from the same weights, Adam states
+   and permutations: go2_moe_cts's CTS.update, go2's PPO.update and
+   go2_lstm's RecurrentPPO.update with its LSTM and with a GRU.
 5. Main path, play: the committed 75k policy's deterministic student rolls
    24 steps on the full flagship terrain at 4096 envs
    (go2_rl_gym_tpu_torch.scripts.play.play).
@@ -26,13 +27,17 @@ Phases (any failure exits non-zero and prints no result line):
    (OnPolicyRunner.train_step: 24-step rollout, GAE, PPO + distillation
    update), then one timed, with rollout / GAE / update ms (each ending in
    a synchronize) and train-iteration env-steps/s. Losses must be finite,
-   both parameter groups must have moved, the learning rate must lie in
+   every parameter group must have moved, the learning rate must lie in
    [1e-5, 1e-2].
-   For 5, 6 and 7 every launch count is set to 0 just before each run and
+8. The same for the go2 task (PPO) and the go2_lstm task (recurrent PPO,
+   LSTM of 256; its carried memory must be non-zero after the iterations),
+   both on the flagship rough terrain, and one iteration of the
+   go2_fast_flat_move task on the plane, at 4096 envs and full width.
+   For 5 to 8 every launch count is set to 0 just before each run and
    read just after; each rough-terrain policy step must launch the patch
-   kernel once (24 per train iteration), and obs and rewards must be
-   finite.
-8. Print one JSON line listing every kernel, then the device line.
+   kernel once (24 per train iteration) and the plane none, and obs and
+   rewards must be finite.
+9. Print one JSON line listing every kernel, then the device line.
 """
 from __future__ import annotations
 
@@ -156,10 +161,16 @@ def phase_cpu_agreement():
     from go2_rl_gym_tpu_torch.tools import card_check
     worst = card_check.env_card_vs_cpu(steps=4)
     print(f"card vs CPU path, 8 envs x 4 rough steps: max_abs_err {worst}")
-    worst = card_check.update_card_vs_cpu()
-    print(f"card vs CPU path, go2_moe_cts CTS.update (64 envs x 4 steps, "
-          f"5 x 4 minibatches): max_abs_err {worst} (atol "
-          f"{card_check.UPDATE_ATOL}, learning rates equal)")
+    checks = [("go2_moe_cts CTS.update", card_check.update_card_vs_cpu),
+              ("go2 PPO.update", card_check.ppo_update_card_vs_cpu)]
+    checks += [(f"go2_lstm RecurrentPPO.update ({t})",
+                lambda t=t: card_check.recurrent_update_card_vs_cpu(
+                    rnn_type=t)) for t in ("lstm", "gru")]
+    for name, check in checks:
+        worst = check()
+        print(f"card vs CPU path, {name} (64 envs x 4 steps, 5 x 4 "
+              f"minibatches): max_abs_err {worst} (atol "
+              f"{card_check.UPDATE_ATOL}, learning rates equal)")
 
 
 def kernel_modules():
@@ -245,23 +256,27 @@ def phase_rollout():
     return counts
 
 
-def phase_train():
+def phase_train(task="go2_moe_cts", iterations=2):
+    """`iterations` train iterations of `task` built through the registry at
+    4096 envs: the first untimed, the others timed (see the module
+    docstring). Returns the launch counts of the last iteration."""
     import torch
     from go2_rl_gym_tpu_torch.utils import registry
 
-    task = "go2_moe_cts"
     env_cfg, tc = registry.get_cfgs(task)
     env = registry.make_env(task, env_cfg, num_envs=NUM_ENVS,
                             num_steps_per_env=tc.runner.num_steps_per_env)
     runner = registry.make_runner(task, env, tc)
     rs = runner.init_runner_state(tc.seed, init_at_random_ep_len=True)
-    groups0 = [[p.detach().clone() for p in g]
-               for g in runner.alg.param_groups()]
+    groups = (runner.alg.param_groups() if runner.is_cts
+              else [list(runner.alg.model.parameters())])
+    groups0 = [[p.detach().clone() for p in g] for g in groups]
     steps = tc.runner.num_steps_per_env
+    want = 0 if env_cfg.terrain.mesh_type == "plane" else steps
     runs = []
     # init_runner_state never runs the policy or the update: a first,
     # untimed iteration takes their one-time costs out of the timed one
-    for _ in range(2):
+    for _ in range(iterations):
         timings, clock = {}, []
 
         def mark(phase):
@@ -276,39 +291,45 @@ def phase_train():
         dt = time.perf_counter() - clock[0]
         runs.append((dt, timings, launch_counts(), m))
     for i, (dt, timings, counts, m) in enumerate(runs):
-        print(f"train iteration {i} ({'timed' if i else 'untimed'}): "
+        print(f"train {task} iteration {i} ({'timed' if i else 'untimed'}): "
               f"{dt * 1e3:.1f} ms = rollout {timings['rollout']:.1f} + "
               f"GAE {timings['gae']:.2f} + update "
               f"{timings['update']:.1f} ms (host clock, each ending in a "
               f"synchronize); {steps * NUM_ENVS / dt:.1f} env-steps/s; "
               f"launches {counts}")
-        if counts["extract_patches"] != steps:
-            raise AssertionError(f"iteration {i}: extract_patches launched "
-                                 f"{counts['extract_patches']} times, want "
-                                 f"{steps}")
-    m = {k: v.detach().cpu() for k, v in runs[1][3].items()}
-    print("train metrics: " + json.dumps(
+        if counts["extract_patches"] != want:
+            raise AssertionError(f"{task} iteration {i}: extract_patches "
+                                 f"launched {counts['extract_patches']} "
+                                 f"times, want {want}")
+    m = {k: v.detach().cpu() for k, v in runs[-1][3].items()}
+    print(f"train {task} metrics: " + json.dumps(
         {k: (v.tolist() if v.dim() else float(v)) for k, v in sorted(m.items())
          if not k.startswith("rew_")}))
-    losses = ("value_loss", "surrogate_loss", "entropy", "latent_loss",
-              "load_balance_loss")
+    losses = [k for k in m if k.endswith("loss") or k == "entropy"]
     bad = [k for k in losses if not bool(torch.isfinite(m[k]))]
-    if bad:
-        raise AssertionError(f"non-finite losses {bad}")
+    if bad or "value_loss" not in losses:
+        raise AssertionError(f"{task}: non-finite or missing losses {bad}")
     lr = float(m["learning_rate"])
-    if not 1e-5 <= lr <= 1e-2:
-        raise AssertionError(f"learning rate {lr} outside [1e-5, 1e-2]")
-    for i, (before, after) in enumerate(zip(groups0,
-                                            runner.alg.param_groups())):
+    # the adaptive LR's floor and cap, as fp32 holds them
+    lo, hi = (float(torch.tensor(x)) for x in (1e-5, 1e-2))
+    if not lo <= lr <= hi:
+        raise AssertionError(f"{task}: learning rate {lr} outside "
+                             f"[1e-5, 1e-2]")
+    for i, (before, after) in enumerate(zip(groups0, groups)):
         moved = max(float((a.detach() - b).abs().max())
                     for a, b in zip(after, before))
-        print(f"parameter group {i + 1}: largest move {moved:.3e}")
+        print(f"{task} parameter group {i + 1}: largest move {moved:.3e}")
         if not moved > 0:
-            raise AssertionError(f"parameter group {i + 1} did not move")
-    obs_ok = bool(torch.isfinite(rs.obs).all())
-    if not obs_ok:
-        raise AssertionError("non-finite obs after the train iterations")
-    return runs[1][2]
+            raise AssertionError(f"{task}: parameter group {i + 1} did not "
+                                 f"move")
+    if not bool(torch.isfinite(rs.obs).all()):
+        raise AssertionError(f"{task}: non-finite obs after the iterations")
+    if runner.is_recurrent:
+        h = float(rs.memory.a.h.abs().max())
+        print(f"{task} actor memory after the iterations: max |h| {h:.4f}")
+        if not h > 0:
+            raise AssertionError(f"{task}: the carried memory is zero")
+    return runs[-1][2]
 
 
 def main():
@@ -350,7 +371,11 @@ def main():
               ("card vs CPU", phase_cpu_agreement),
               ("play", phase_play),
               ("rollout", phase_rollout),
-              ("train", phase_train)]
+              ("train", phase_train),
+              ("train go2", lambda: phase_train("go2")),
+              ("train go2_lstm", lambda: phase_train("go2_lstm")),
+              ("train go2_fast_flat_move",
+               lambda: phase_train("go2_fast_flat_move", iterations=1))]
     launches = {}
     for name, fn in phases:
         t = time.perf_counter()

@@ -10,7 +10,7 @@ schedule never reads a value back to the host.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 
@@ -24,6 +24,17 @@ def gaussian_log_prob(mu, std, actions):
     logp = (-0.5 * torch.square(actions - mu) / var
             - torch.log(std) - 0.5 * math.log(2.0 * math.pi))
     return torch.sum(logp, dim=-1)
+
+
+def draw_noise(mu, gen: Optional[torch.Generator], noise):
+    """The act noise: `noise` if given, else a standard normal draw of mu's
+    shape from `gen`; nothing uses the global generator."""
+    if noise is not None:
+        return noise
+    if gen is None:
+        raise ValueError("act draws its noise from an explicit generator: "
+                         "pass gen or noise")
+    return torch.randn(mu.shape, generator=gen, device=mu.device)
 
 
 def gaussian_entropy(std):

@@ -167,17 +167,12 @@ class CTS:
     def act(self, obs, priv, history, gen: Optional[torch.Generator] = None,
             noise: Optional[torch.Tensor] = None):
         """Sample actions: mu + std * noise, the standard normal `noise`
-        drawn from `gen` unless given. Returns (actions, values, logp, mu,
-        std), all rollout data without gradient history."""
+        drawn from `gen` unless given (common.draw_noise). Returns (actions,
+        values, logp, mu, std), all rollout data without gradient history."""
         latent = self._latent(obs, priv, history)
         mu, std, _ = self.model.dist(latent, obs)
         std = std.detach()      # a view of the parameter keeps requires_grad
-        if noise is None:
-            if gen is None:
-                raise ValueError("act draws its noise from an explicit "
-                                 "generator: pass gen or noise")
-            noise = torch.randn(mu.shape, generator=gen, device=mu.device)
-        actions = mu + std * noise
+        actions = mu + std * common.draw_noise(mu, gen, noise)
         logp = common.gaussian_log_prob(mu, std, actions)
         values = self._value(latent, priv, obs)
         return actions, values, logp, mu, std

@@ -1,6 +1,8 @@
 """Policy / value networks (PyTorch port of go2_rl_gym_tpu/agents/networks.py).
 
-The six concurrent teacher-student families:
+The plain PPO actor-critic ``ActorCritic`` (reference
+rsl_rl/modules/actor_critic.py) and the six concurrent teacher-student
+families:
 
 * ``CTSFamily('cts')``          <- rsl_rl/modules/actor_critic_cts.py:18-223
 * ``CTSFamily('moe_cts')``      <- rsl_rl/modules/actor_critic_moe_cts.py:20-141
@@ -189,6 +191,31 @@ class ActorMCP(nn.Module):
         return mu_total, sigma, weights
 
 
+class ActorCritic(nn.Module):
+    """Plain PPO actor-critic (JAX networks.py:219-246): an actor MLP on the
+    obs, a critic MLP on the privileged obs, and a state-independent std."""
+
+    def __init__(self, num_obs: int, num_critic_obs: int, num_actions: int,
+                 actor_hidden_dims=(512, 256, 128),
+                 critic_hidden_dims=(512, 256, 128), activation="elu",
+                 init_noise_std=1.0, device=None):
+        super().__init__()
+        self.init_noise_std = init_noise_std
+        self.actor = MLP(num_obs, list(actor_hidden_dims) + [num_actions],
+                         activation, device=device)
+        self.critic = MLP(num_critic_obs, list(critic_hidden_dims) + [1],
+                          activation, device=device)
+        self.std = nn.Parameter(torch.empty((num_actions,), device=device))
+
+    def actor_dist(self, obs):
+        """Returns (mu, std broadcast to mu's shape)."""
+        mu = self.actor(obs)
+        return mu, self.std.expand(mu.shape)
+
+    def value(self, critic_obs):
+        return self.critic(critic_obs)[..., 0]
+
+
 CTS_FAMILIES = ("cts", "moe_cts", "moe_ng_cts", "mcp_cts", "ac_moe_cts",
                 "dual_moe_cts")
 # families whose student encoder is a MoE on the whole history
@@ -320,14 +347,22 @@ class CTSFamily(nn.Module):
 @torch.no_grad()
 def init_params(model: nn.Module, gen: torch.Generator):
     """torch-Linear-style init from `gen`: every Linear weight and bias
-    U(+-1/sqrt(fan_in)), expert heads U(+-1/sqrt(H)), std = init_noise_std.
-    Modules are visited in registration order, so a seed fixes the weights."""
+    U(+-1/sqrt(fan_in)), expert heads U(+-1/sqrt(H)), std = init_noise_std
+    for every model that has one. A module with an `init_from(gen)` method
+    (the recurrent cells) initialises its own subtree. Modules are visited
+    in registration order, so a seed fixes the weights."""
     def uniform_(t, bound):
         t.copy_((torch.rand(t.shape, generator=gen, device=gen.device)
                  * 2.0 - 1.0).to(t.device) * bound)
 
+    done = set()
     for m in model.modules():
-        if isinstance(m, nn.Linear):
+        if id(m) in done:
+            continue
+        if hasattr(m, "init_from"):
+            m.init_from(gen)
+            done.update(id(s) for s in m.modules())
+        elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             uniform_(m.weight, bound)
             uniform_(m.bias, bound)
@@ -335,7 +370,7 @@ def init_params(model: nn.Module, gen: torch.Generator):
             bound = 1.0 / math.sqrt(m.H)
             uniform_(m.head_kernel, bound)
             uniform_(m.head_bias, bound)
-    if isinstance(model, CTSFamily) and hasattr(model, "std"):
+    if hasattr(model, "init_noise_std") and hasattr(model, "std"):
         model.std.fill_(model.init_noise_std)
     return model
 

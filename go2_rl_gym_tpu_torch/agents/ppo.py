@@ -1,0 +1,194 @@
+"""PPO: clipped surrogate, GAE, adaptive-KL LR
+(PyTorch port of go2_rl_gym_tpu/agents/ppo.py).
+
+Counterpart of reference rsl_rl/rsl_rl/algorithms/ppo.py:38-187. As in
+agents/cts.py, the train state (the model's parameters, one Adam state and
+the learning rate as a 0-d fp32 tensor) lives in this object; the parameters
+are the model's, updated in place, and `update` reads nothing back to the
+host.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from go2_rl_gym_tpu_torch.agents import common
+from go2_rl_gym_tpu_torch.agents.networks import ActorCritic
+from go2_rl_gym_tpu_torch.env.config import AlgorithmCfg, PolicyCfg
+
+
+class Transition(NamedTuple):
+    """One rollout step, (N, ...); stacked to (T, N, ...) by the rollout
+    (reference rollout_storage.py:37-51)."""
+    obs: torch.Tensor
+    critic_obs: torch.Tensor
+    actions: torch.Tensor
+    rewards: torch.Tensor
+    dones: torch.Tensor
+    values: torch.Tensor
+    log_probs: torch.Tensor
+    mu: torch.Tensor
+    sigma: torch.Tensor
+
+
+# the fields a minibatch reads (rewards and dones only feed GAE)
+MB_FIELDS = ("obs", "critic_obs", "actions", "values", "log_probs", "mu",
+             "sigma")
+
+
+def ppo_loss(cfg: AlgorithmCfg, mu, std, values, mb):
+    """The clipped PPO loss of one minibatch `mb` (MB_FIELDS, returns and
+    advantages; JAX ppo.py:114-126). Returns (loss, (value loss, surrogate,
+    mean entropy))."""
+    logp = common.gaussian_log_prob(mu, std, mb["actions"])
+    entropy = common.gaussian_entropy(std).mean()
+    surr = common.surrogate_loss(logp, mb["log_probs"], mb["advantages"],
+                                 cfg.clip_param).mean()
+    vloss = common.clipped_value_loss(values, mb["values"], mb["returns"],
+                                      cfg.clip_param,
+                                      cfg.use_clipped_value_loss).mean()
+    loss = surr + cfg.value_loss_coef * vloss - cfg.entropy_coef * entropy
+    return loss, (vloss, surr, entropy)
+
+
+class PPO:
+    def __init__(self, num_obs: int, num_critic_obs: int, num_actions: int,
+                 policy_cfg: PolicyCfg, alg_cfg: AlgorithmCfg, device):
+        self.cfg = alg_cfg
+        self.device = torch.device(device)
+        self.model = self.make_model(num_obs, num_critic_obs, num_actions,
+                                     policy_cfg)
+        self.num_obs = num_obs
+        self.num_critic_obs = num_critic_obs
+        self.num_actions = num_actions
+        self.reset_train_state()
+
+    def make_model(self, num_obs, num_critic_obs, num_actions,
+                   policy_cfg: PolicyCfg):
+        return ActorCritic(
+            num_obs, num_critic_obs, num_actions,
+            actor_hidden_dims=tuple(policy_cfg.actor_hidden_dims),
+            critic_hidden_dims=tuple(policy_cfg.critic_hidden_dims),
+            activation=policy_cfg.activation,
+            init_noise_std=policy_cfg.init_noise_std, device=self.device)
+
+    # ------------------------------------------------------------------
+    # Train state
+    # ------------------------------------------------------------------
+
+    def reset_train_state(self):
+        """A fresh Adam state and the configured learning rate (JAX
+        PPO.init, ppo.py:58-63); the parameters are left as they are."""
+        self.opt = common.adam_init(self.model.parameters())
+        self.lr = torch.tensor(self.cfg.learning_rate, dtype=torch.float32,
+                               device=self.device)
+
+    def train_state_dict(self) -> Dict:
+        """Everything the update carries: model weights, the Adam state, the
+        learning rate."""
+        return {"model": self.model.state_dict(), "opt": self.opt._asdict(),
+                "lr": self.lr}
+
+    def load_train_state_dict(self, sd: Dict):
+        self.model.load_state_dict(sd["model"])
+        dev, o = self.device, sd["opt"]
+        self.opt = common.AdamState(count=o["count"].to(dev),
+                                    mu=[t.to(dev) for t in o["mu"]],
+                                    nu=[t.to(dev) for t in o["nu"]])
+        self.lr = sd["lr"].to(dev)
+
+    # ------------------------------------------------------------------
+    # Rollout side
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def act(self, obs, critic_obs, gen: Optional[torch.Generator] = None,
+            noise: Optional[torch.Tensor] = None):
+        """Sample actions: mu + std * noise (common.draw_noise). Returns
+        (actions, values, logp, mu, std) without gradient history."""
+        mu, std = self.model.actor_dist(obs)
+        std = std.detach()      # a view of the parameter keeps requires_grad
+        actions = mu + std * common.draw_noise(mu, gen, noise)
+        logp = common.gaussian_log_prob(mu, std, actions)
+        return actions, self.model.value(critic_obs), logp, mu, std
+
+    @torch.no_grad()
+    def value(self, critic_obs):
+        return self.model.value(critic_obs)
+
+    def process_rewards(self, rewards, values, time_outs, gamma):
+        """Bootstrap on time-outs (reference ppo.py:104-110)."""
+        return rewards + gamma * values * time_outs.to(torch.float32)
+
+    # ------------------------------------------------------------------
+    # Update
+    # ------------------------------------------------------------------
+
+    def update(self, batch: Transition, returns, advantages,
+               gen: Optional[torch.Generator] = None, perms=None):
+        """`num_learning_epochs` x `num_mini_batches` clipped-PPO steps
+        (JAX ppo.py:84-147). The (T, N) batch is flattened t-major (row
+        t*N + n) and shuffled once per update, by `perms` (a permutation of
+        range(T * N)) if given, else by torch.randperm from `gen`; the same
+        minibatches are replayed in every epoch. Returns the metrics as 0-d
+        tensors."""
+        T, N = batch.rewards.shape
+        total = T * N
+        nmb = self.cfg.num_mini_batches
+        mb_size = total // nmb
+        perm = self._perm(total, nmb * mb_size, gen, perms)
+
+        def shuffle(x):
+            flat = x.reshape((total,) + x.shape[2:])
+            return flat[perm].reshape((nmb, mb_size) + x.shape[2:])
+
+        pools = {k: shuffle(getattr(batch, k)) for k in MB_FIELDS}
+        pools["returns"] = shuffle(returns)
+        pools["advantages"] = shuffle(advantages)
+
+        def forward(mb, slot):
+            mu, std = self.model.actor_dist(mb["obs"])
+            return mu, std, self.model.value(mb["critic_obs"])
+        return self._epochs(pools, nmb, forward)
+
+    def _perm(self, n, keep, gen, perms):
+        """The update's one shuffle: `perms` if given, else a permutation of
+        range(n) from `gen`; its first `keep` entries, on the device."""
+        if perms is None:
+            if gen is None:
+                raise ValueError("update shuffles with an explicit generator:"
+                                 " pass gen or perms")
+            perms = torch.randperm(n, generator=gen, device=self.device)
+        return torch.as_tensor(perms, device=self.device).long()[:keep]
+
+    def _epochs(self, pools, nmb, forward):
+        """The minibatch loop: epochs x the `nmb` minibatches of `pools`
+        (dicts of MB_FIELDS, returns and advantages, minibatch first), each
+        one clipped-PPO Adam step on all parameters. `forward(mb, slot)`
+        gives (mu, std, values) for minibatch `slot`. The adaptive-KL LR is
+        set from each minibatch's KL before its step. Returns the means of
+        the losses and the final LR."""
+        cfg = self.cfg
+        params = list(self.model.parameters())
+        adaptive = cfg.schedule == "adaptive" and cfg.desired_kl is not None
+        A = self.num_actions
+        lr, opt, stats = self.lr, self.opt, []
+        for _ in range(cfg.num_learning_epochs):
+            for slot in range(nmb):
+                mb = {k: v[slot] for k, v in pools.items()}
+                mu, std, values = forward(mb, slot)
+                loss, st = ppo_loss(cfg, mu, std, values, mb)
+                grads = torch.autograd.grad(loss, params)
+                if adaptive:    # the KL over all samples of the minibatch
+                    lr, _ = common.adaptive_kl_lr(
+                        lr, mu.detach().reshape(-1, A),
+                        std.detach().reshape(-1, A), mb["mu"].reshape(-1, A),
+                        mb["sigma"].reshape(-1, A), cfg.desired_kl)
+                opt = common.adam_step(params, grads, opt, lr,
+                                       cfg.max_grad_norm)
+                stats.append(torch.stack(st).detach())
+        self.opt, self.lr = opt, lr
+        s = torch.stack(stats).mean(dim=0)
+        return {"value_loss": s[0], "surrogate_loss": s[1], "entropy": s[2],
+                "learning_rate": lr}

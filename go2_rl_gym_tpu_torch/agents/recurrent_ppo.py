@@ -1,0 +1,138 @@
+"""Recurrent PPO: LSTM/GRU actor-critic trained with sequence replay
+(PyTorch port of go2_rl_gym_tpu/agents/recurrent_ppo.py).
+
+Counterpart of the reference's recurrent path (rsl_rl
+actor_critic_recurrent.py:40-116 + rollout_storage.py:186-235 + ppo.py with
+hidden-state plumbing), as the JAX package designs it:
+
+* The update replays each env's whole T-step window through both RNNs from
+  the window-start memory, zeroing the memory at done flags: the same
+  computation on the same samples as the reference's split-and-pad
+  minibatches, with static shapes.
+* The memory is carried in the runner's RunnerState; the runner snapshots
+  the rollout-start memory once per iteration for the replay.
+* Minibatches are env slices (sequences stay whole), shuffled once per
+  update.
+
+The train state lives in this object, as in agents/ppo.py.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from go2_rl_gym_tpu_torch.agents import common
+from go2_rl_gym_tpu_torch.agents.ppo import MB_FIELDS, PPO, Transition
+from go2_rl_gym_tpu_torch.agents.recurrent import (ActorCriticRecurrent,
+                                                   LSTMState)
+from go2_rl_gym_tpu_torch.env.config import AlgorithmCfg, PolicyCfg
+
+
+class Memory(NamedTuple):
+    """Carried RNN state of both heads."""
+    a: LSTMState
+    c: LSTMState
+
+
+class RecurrentPPO(PPO):
+    """PPO's train state and surface, plus memory threading."""
+
+    def __init__(self, num_obs: int, num_critic_obs: int, num_actions: int,
+                 policy_cfg: PolicyCfg, alg_cfg: AlgorithmCfg, device):
+        self.hidden = policy_cfg.rnn_hidden_size
+        super().__init__(num_obs, num_critic_obs, num_actions, policy_cfg,
+                         alg_cfg, device)
+
+    def make_model(self, num_obs, num_critic_obs, num_actions,
+                   policy_cfg: PolicyCfg):
+        return ActorCriticRecurrent(
+            num_obs, num_critic_obs, num_actions,
+            actor_hidden_dims=tuple(policy_cfg.actor_hidden_dims),
+            critic_hidden_dims=tuple(policy_cfg.critic_hidden_dims),
+            rnn_hidden_size=policy_cfg.rnn_hidden_size,
+            rnn_type=policy_cfg.rnn_type, activation=policy_cfg.activation,
+            init_noise_std=policy_cfg.init_noise_std, device=self.device)
+
+    def zero_memory(self, batch: int) -> Memory:
+        z = torch.zeros((batch, self.hidden), device=self.device)
+        return Memory(a=LSTMState(h=z, c=z), c=LSTMState(h=z, c=z))
+
+    # ------------------------------------------------------------------
+    # Rollout side
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def act(self, obs, critic_obs, mem: Memory,
+            gen: Optional[torch.Generator] = None,
+            noise: Optional[torch.Tensor] = None):
+        """Sample actions (as PPO.act) and step both memories. Returns
+        (actions, values, logp, mu, std, new memory)."""
+        mu, std, sa = self.model.actor_dist(obs, mem.a)
+        std = std.detach()      # a view of the parameter keeps requires_grad
+        actions = mu + std * common.draw_noise(mu, gen, noise)
+        logp = common.gaussian_log_prob(mu, std, actions)
+        values, sc = self.model.value(critic_obs, mem.c)
+        return actions, values, logp, mu, std, Memory(a=sa, c=sc)
+
+    def reset_memory(self, mem: Memory, dones) -> Memory:
+        return Memory(a=ActorCriticRecurrent.reset_state(mem.a, dones),
+                      c=ActorCriticRecurrent.reset_state(mem.c, dones))
+
+    @torch.no_grad()
+    def value(self, critic_obs, mem: Memory):
+        return self.model.value(critic_obs, mem.c)[0]
+
+    # ------------------------------------------------------------------
+    # Update
+    # ------------------------------------------------------------------
+
+    def _replay(self, obs, critic_obs, dones, mem0: Memory):
+        """Step the whole (T, n, ...) window through both RNNs from the
+        window-start memory, zeroing at dones (JAX recurrent_ppo.py:104-118):
+        for the same parameters, the rollout's mu, std and values. Returns
+        them stacked (T, n, ...)."""
+        model = self.model
+        fa, fc = model.memory_a.cell.fused(), model.memory_c.cell.fused()
+        mem, mus, stds, values = mem0, [], [], []
+        for t in range(obs.shape[0]):
+            mu, std, sa = model.actor_dist(obs[t], mem.a, fa)
+            v, sc = model.value(critic_obs[t], mem.c, fc)
+            mem = self.reset_memory(Memory(a=sa, c=sc),
+                                    dones[t].to(torch.bool))
+            mus.append(mu)
+            stds.append(std)
+            values.append(v)
+        return torch.stack(mus), torch.stack(stds), torch.stack(values)
+
+    def update(self, batch: Transition, returns, advantages, mem0: Memory,
+               gen: Optional[torch.Generator] = None, perms=None):
+        """Epochs x env-sliced minibatches of clipped PPO with sequence
+        replay from `mem0`, the rollout-start memory (JAX
+        recurrent_ppo.py:120-184). The envs are shuffled once per update, by
+        `perms` (a permutation of range(N)) if given, else by torch.randperm
+        from `gen`; each minibatch is (T, N // num_mini_batches, ...), and
+        its KL for the adaptive LR spans all its T * N // nmb samples.
+        Returns the metrics as 0-d tensors."""
+        T, N = batch.rewards.shape
+        nmb = self.cfg.num_mini_batches
+        mb_envs = N // nmb
+        perm = self._perm(N, nmb * mb_envs, gen, perms)
+
+        def env_slice(x):
+            # (T, N, ...) -> (nmb, T, mb_envs, ...)
+            sh = x[:, perm].reshape((T, nmb, mb_envs) + x.shape[2:])
+            return sh.movedim(1, 0)
+
+        pools = {k: env_slice(getattr(batch, k))
+                 for k in MB_FIELDS + ("dones",)}
+        pools["returns"] = env_slice(returns)
+        pools["advantages"] = env_slice(advantages)
+        # the rollout-start memory of each minibatch's envs
+        sh_mem = [[x[perm].reshape((nmb, mb_envs) + x.shape[1:]) for x in s]
+                  for s in mem0]
+
+        def forward(mb, slot):
+            mem = Memory(*[LSTMState(*[x[slot] for x in s]) for s in sh_mem])
+            return self._replay(mb["obs"], mb["critic_obs"], mb["dones"], mem)
+        return self._epochs(pools, nmb, forward)

@@ -1,4 +1,4 @@
-"""Weights into the port's CTSFamily modules
+"""Weights into the port's policy modules
 (PyTorch port of the import side of go2_rl_gym_tpu/export/importer.py).
 
 Two sources:
@@ -14,8 +14,11 @@ Two sources:
   Modules absent from the file (a deploy artifact has no teacher or critic)
   keep their current weights.
 
-``params_from_jax`` and its inverse ``tree_from_named`` cover all six CTS
-families; the reference ``.pt`` naming is mapped for ``moe_cts`` and ``cts``.
+``params_from_jax`` and its inverse ``tree_from_named`` work by parameter
+name: they cover all six CTS families, ``ActorCritic`` and
+``ActorCriticRecurrent`` (LSTM and GRU, whose gate modules carry flax's
+names, ``memory_a.cell.if.weight`` <-> ``memory_a/cell/if/kernel``); the
+reference ``.pt`` naming is mapped for ``moe_cts`` and ``cts``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from torch import nn
 
 from go2_rl_gym_tpu_torch.agents.networks import CTSFamily
 
@@ -222,7 +227,8 @@ def tensors_from_tree(names, tree: Dict, device=None):
     """The arrays of a JAX-layout tree (``{"params": ...}`` or bare) as
     tensors, one per name in `names` (port parameter names): a JAX
     CTSTrainState's ``params1`` / ``params2`` or an Adam moment of either,
-    lined up with ``cts.split_params``'s groups."""
+    lined up with ``cts.split_params``'s groups; a PPOTrainState's
+    ``params`` or moment, lined up with ``model.named_parameters()``."""
     flat = _flatten(tree["params"] if "params" in tree else tree)
     out = []
     for name in names:
@@ -235,11 +241,12 @@ def tensors_from_tree(names, tree: Dict, device=None):
 
 
 @torch.no_grad()
-def params_from_jax(tree: Dict, model: CTSFamily) -> CTSFamily:
-    """Load the JAX package's ``{"params": CTSFamily tree}`` (nested dicts of
-    numpy arrays) into `model`, for any of the six families. A top-level
-    module absent from the tree is left as it is; a module present with
-    other entries or other shapes raises."""
+def params_from_jax(tree: Dict, model: nn.Module) -> nn.Module:
+    """Load the JAX package's ``{"params": tree}`` (nested dicts of numpy
+    arrays) into `model`: any of the six CTS families, ``ActorCritic`` or
+    ``ActorCriticRecurrent``. A top-level module absent from the tree is
+    left as it is; a module present with other entries or other shapes
+    raises."""
     p = tree["params"] if "params" in tree else tree
     flat = _flatten(p)
     for name, param in model.named_parameters():

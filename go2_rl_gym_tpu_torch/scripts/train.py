@@ -4,7 +4,9 @@ Counterpart of reference legged_gym/scripts/train.py + the CLI flag schema
 of legged_gym/utils/helpers.py:128-157. Builds the task's env and runner on
 `--device` (the card by default), starts every env at a random episode
 length, optionally resumes the latest (or a named) checkpoint of the
-experiment, and runs `learn`.
+experiment, and runs `learn`. Every registered task trains (PPO `go2`,
+recurrent PPO `go2_lstm`, the six CTS tasks, the three ablation variants;
+`utils.registry.task_names()`).
 
 Usage:
     python -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \

@@ -11,6 +11,10 @@ these checks carry that to the card:
   steps, from the same weights, Adam states and permutations on both
   devices; params, Adam moments and metrics must agree within UPDATE_ATOL
   and the learning rates exactly.
+* `ppo_update_card_vs_cpu` and `recurrent_update_card_vs_cpu`: the same
+  for `PPO.update` of the go2 task and `RecurrentPPO.update` of the go2_lstm
+  task (LSTM, or GRU with rnn_type="gru"), the latter replaying from a
+  seeded non-zero rollout-start memory.
 
 `chip_smoke.py` runs both, and so do the card-only tests in
 `tests/test_torch_kernels.py`.
@@ -108,90 +112,102 @@ def env_card_vs_cpu(steps=4, seed=0, device="cuda"):
 
 
 def _update_inputs(alg, N, T, rng):
-    """A seeded batch whose old policy is `alg`'s current one shifted by
-    half a std (so the KL, 1.5, is far above the adaptive-LR thresholds and
-    every minibatch divides the LR by 1.5), with its GAE, and Adam states
-    as after 10 steps (second moments well above Adam's eps, where fp32
-    rounding of near-zero gradients would be amplified by lr / eps)."""
-    from go2_rl_gym_tpu_torch.agents import common
-    from go2_rl_gym_tpu_torch.agents.cts import Transition
+    """A seeded batch for `alg` (CTS, PPO or RecurrentPPO) whose old policy
+    is its current one shifted by half a std (so the KL, 1.5, is far above
+    the adaptive-LR thresholds and every minibatch divides the LR by 1.5),
+    with its GAE; Adam states as after 10 steps, one per parameter group
+    (second moments well above Adam's eps, where fp32 rounding of near-zero
+    gradients would be amplified by lr / eps); and the update's
+    permutations. RecurrentPPO's old policy is replayed from a seeded
+    non-zero rollout-start memory. Returns (batch, returns, advantages,
+    the update's extra arguments ((memory,) or ()), Adam states, perms)."""
+    from go2_rl_gym_tpu_torch.agents import common, cts, ppo
+    from go2_rl_gym_tpu_torch.agents.recurrent import LSTMState
+    from go2_rl_gym_tpu_torch.agents.recurrent_ppo import Memory
 
-    f = np.float32
-    obs = torch.as_tensor(rng.normal(size=(T, N, alg.num_obs)).astype(f))
-    priv = torch.as_tensor(rng.normal(size=(T, N, alg.num_critic_obs))
-                           .astype(f))
-    hist = torch.as_tensor(rng.normal(
-        size=(T, N, alg.num_obs * alg.history_length)).astype(f))
-    zero = torch.zeros((N, alg.num_actions))
-    mu, std = zip(*[alg.act(obs[t], priv[t], hist[t], noise=zero)[3:]
-                    for t in range(T)])
-    mu, std = torch.stack(mu), torch.stack(std)
-    old_mu = mu + 0.5 * std
-    actions = old_mu + std * torch.as_tensor(
-        rng.normal(size=tuple(mu.shape)).astype(f))
-    rewards = torch.as_tensor(rng.normal(size=(T, N)).astype(f))
-    values = torch.as_tensor(rng.normal(size=(T, N)).astype(f))
+    def normal(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32))
+
+    is_cts = isinstance(alg, cts.CTS)
+    recurrent = hasattr(alg, "zero_memory")
+    obs, priv = normal(T, N, alg.num_obs), normal(T, N, alg.num_critic_obs)
     dones = torch.as_tensor(rng.random((T, N)) < 0.1)
-    batch = Transition(
-        obs=obs, critic_obs=priv, history=hist, actions=actions,
-        rewards=rewards, dones=dones, values=values,
+    extra, fields = (), {}
+    with torch.no_grad():
+        if is_cts:
+            hist = fields["history"] = normal(
+                T, N, alg.num_obs * alg.history_length)
+            zero = torch.zeros((N, alg.num_actions))
+            mu, std = (torch.stack(x) for x in zip(*[
+                alg.act(obs[t], priv[t], hist[t], noise=zero)[3:]
+                for t in range(T)]))
+        elif recurrent:
+            extra = (Memory(*[LSTMState(*[0.5 * normal(N, alg.hidden)
+                                          for _ in range(2)])
+                              for _ in range(2)]),)
+            mu, std, _ = alg._replay(obs, priv, dones, extra[0])
+        else:
+            mu, std = alg.model.actor_dist(obs)
+    old_mu, std = mu + 0.5 * std, std.contiguous()
+    actions = old_mu + std * normal(*mu.shape)
+    rewards, values = normal(T, N), normal(T, N)
+    batch = (cts.Transition if is_cts else ppo.Transition)(
+        obs=obs, critic_obs=priv, actions=actions, rewards=rewards,
+        dones=dones, values=values,
         log_probs=common.gaussian_log_prob(old_mu, std, actions),
-        mu=old_mu, sigma=std)
-    ret, adv = common.compute_gae(
-        rewards, values, dones, torch.as_tensor(rng.normal(size=N).astype(f)),
-        alg.cfg.gamma, alg.cfg.lam)
+        mu=old_mu, sigma=std, **fields)
+    ret, adv = common.compute_gae(rewards, values, dones, normal(N),
+                                  alg.cfg.gamma, alg.cfg.lam)
     bc = 1 - 0.999 ** 10
-    opts = []
-    for params in alg.param_groups():
-        opts.append(common.AdamState(
-            torch.tensor(10, dtype=torch.int32),
-            [torch.as_tensor(1e-4 * rng.normal(size=tuple(p.shape)).astype(f))
-             for p in params],
-            [torch.as_tensor((bc * rng.uniform(1e-4, 1e-3, size=tuple(p.shape))
-                              ** 2).astype(f)) for p in params]))
-    perms = (rng.permutation(alg.num_teacher * T),
-             rng.permutation(alg.num_student * T))
-    return batch, ret, adv, opts, perms
+    groups = (alg.param_groups() if is_cts
+              else [list(alg.model.parameters())])
+    opts = [common.AdamState(
+        torch.tensor(10, dtype=torch.int32),
+        [1e-4 * normal(*p.shape) for p in params],
+        [torch.as_tensor((bc * rng.uniform(1e-4, 1e-3, size=tuple(p.shape))
+                          ** 2).astype(np.float32)) for p in params])
+        for params in groups]
+    if is_cts:
+        perms = (rng.permutation(alg.num_teacher * T),
+                 rng.permutation(alg.num_student * T))
+    else:
+        perms = rng.permutation(N if recurrent else T * N)
+    return batch, ret, adv, extra, opts, perms
 
 
-def update_card_vs_cpu(seed=0, device="cuda", num_envs=64, steps=4):
-    """One CTS.update of the flagship model on both devices from the same
-    state (see the module docstring). Raises AssertionError on a
-    disagreement; returns the largest absolute difference of params, Adam
-    moments and metrics."""
-    from go2_rl_gym_tpu_torch.agents.cts import CTS
+def _card_vs_cpu(make_alg, seed, device, num_envs, steps):
+    """One update of the algorithm `make_alg(device)` builds, on the CPU and
+    on `device` from the same weights, batch, Adam states and permutations
+    (see the module docstring)."""
     from go2_rl_gym_tpu_torch.agents.networks import init_params
     from go2_rl_gym_tpu_torch.device import resolve_device
-    from go2_rl_gym_tpu_torch.env.config import go2_moe_cts_train_cfg
 
     dev = resolve_device(device)
-    tc = go2_moe_cts_train_cfg()
-    algs = [CTS(tc.runner.algorithm_class_name, 45, 263, 12, num_envs,
-                tc.history_length, tc.policy, tc.algorithm, d)
-            for d in ("cpu", dev)]
-    cpu, card = algs
+    cpu, card = make_alg("cpu"), make_alg(dev)
     init_params(cpu.model, torch.Generator().manual_seed(seed))
     card.model.load_state_dict(cpu.model.state_dict())
-    batch, ret, adv, opts, perms = _update_inputs(
+    batch, ret, adv, extra, opts, perms = _update_inputs(
         cpu, num_envs, steps, np.random.default_rng(seed))
-    cpu.opt1, cpu.opt2 = opts
+    tags = ("opt1", "opt2") if len(opts) == 2 else ("opt",)
     # a copy: on one device `to` would alias the moments updated in place
-    card.opt1, card.opt2 = tree_to(copy.deepcopy(opts), dev)
-    m_cpu = cpu.update(batch, ret, adv, perms=perms)
+    for tag, o, oc in zip(tags, opts, tree_to(copy.deepcopy(opts), dev)):
+        setattr(cpu, tag, o)
+        setattr(card, tag, oc)
+    m_cpu = cpu.update(batch, ret, adv, *extra, perms=perms)
     m_card = card.update(tree_to(batch, dev), ret.to(dev), adv.to(dev),
-                         perms=perms)
+                         *tree_to(extra, dev), perms=perms)
     if float(card.lr) != float(cpu.lr):
         raise AssertionError(f"learning rate {float(card.lr)} on the card, "
                              f"{float(cpu.lr)} on the CPU")
-    worst = {}
     pairs = {"params": (list(card.model.parameters()),
                         list(cpu.model.parameters()))}
-    for tag in ("opt1", "opt2"):
+    for tag in tags:
         a, b = getattr(card, tag), getattr(cpu, tag)
         pairs[f"{tag}.mu"] = (a.mu, b.mu)
         pairs[f"{tag}.nu"] = (a.nu, b.nu)
     pairs["metrics"] = ([m_card[k].reshape(1) for k in sorted(m_cpu)],
                         [m_cpu[k].reshape(1) for k in sorted(m_cpu)])
+    worst = {}
     for tag, (got, want) in pairs.items():
         worst[tag] = 0.0
         for g, w in zip(got, want):
@@ -203,6 +219,54 @@ def update_card_vs_cpu(seed=0, device="cuda", num_envs=64, steps=4):
     return worst
 
 
+def update_card_vs_cpu(seed=0, device="cuda", num_envs=64, steps=4):
+    """One CTS.update of the flagship go2_moe_cts model on both devices
+    from the same state. Raises AssertionError on a disagreement; returns
+    the largest absolute difference of params, Adam moments and
+    metrics."""
+    from go2_rl_gym_tpu_torch.agents.cts import CTS
+    from go2_rl_gym_tpu_torch.env.config import go2_moe_cts_train_cfg
+
+    tc = go2_moe_cts_train_cfg()
+    return _card_vs_cpu(
+        lambda d: CTS(tc.runner.algorithm_class_name, 45, 263, 12, num_envs,
+                      tc.history_length, tc.policy, tc.algorithm, d),
+        seed, device, num_envs, steps)
+
+
+def ppo_update_card_vs_cpu(seed=0, device="cuda", num_envs=64, steps=4):
+    """One PPO.update of the go2 task's model on both devices from the same
+    state; as update_card_vs_cpu."""
+    from go2_rl_gym_tpu_torch.agents.ppo import PPO
+    from go2_rl_gym_tpu_torch.env.config import go2_ppo_train_cfg
+
+    tc = go2_ppo_train_cfg()
+    return _card_vs_cpu(
+        lambda d: PPO(45, 263, 12, tc.policy, tc.algorithm, d),
+        seed, device, num_envs, steps)
+
+
+def recurrent_update_card_vs_cpu(seed=0, device="cuda", num_envs=64,
+                                 steps=4, rnn_type="lstm"):
+    """One RecurrentPPO.update (env-sliced minibatches replayed from a
+    seeded memory) of the go2_lstm task's model, its memory cell set to
+    `rnn_type`, on both devices from the same state; as
+    update_card_vs_cpu."""
+    from go2_rl_gym_tpu_torch.agents.recurrent_ppo import RecurrentPPO
+    from go2_rl_gym_tpu_torch.env.config import go2_lstm_train_cfg
+
+    tc = go2_lstm_train_cfg()
+    tc.policy.rnn_type = rnn_type
+    return _card_vs_cpu(
+        lambda d: RecurrentPPO(45, 263, 12, tc.policy, tc.algorithm, d),
+        seed, device, num_envs, steps)
+
+
 if __name__ == "__main__":
-    print(json.dumps({"env_max_abs_err": env_card_vs_cpu(),
-                      "update_max_abs_err": update_card_vs_cpu()}))
+    print(json.dumps({
+        "env_max_abs_err": env_card_vs_cpu(),
+        "update_max_abs_err": update_card_vs_cpu(),
+        "ppo_update_max_abs_err": ppo_update_card_vs_cpu(),
+        "recurrent_update_max_abs_err": {
+            t: recurrent_update_card_vs_cpu(rnn_type=t)
+            for t in ("lstm", "gru")}}))

@@ -1,11 +1,12 @@
 """Where the time of one rollout step goes, on the card.
 
-Builds the flagship env (full rough terrain) and the go2_moe_cts runner at
-4096 envs, warms up, then:
+Builds a task's env and runner through the registry (`--task`, the flagship
+go2_moe_cts on the full rough terrain by default; `go2` and `go2_lstm` run
+on the same terrain) at 4096 envs, warms up, then:
 
 1. times one policy step's parts with CUDA events, each alone and back to
-   back: CTS.act, the physics step (env.physics_step: patch extraction +
-   4 substeps), and the whole env.step;
+   back: the algorithm's act, the physics step (env.physics_step: patch
+   extraction + 4 substeps), and the whole env.step;
 2. times `--steps` rollout steps on the host clock without the profiler
    (`rollout_step_ms`);
 3. profiles `--steps` more rollout steps with torch.profiler: device busy
@@ -31,8 +32,8 @@ untimed iteration):
 Prints one JSON object as its last line.
 
 Usage:
-    python -m go2_rl_gym_tpu_torch.tools.profile_rollout [--num_envs 4096]
-        [--steps 3] [--train]
+    python -m go2_rl_gym_tpu_torch.tools.profile_rollout [--task go2_moe_cts]
+        [--num_envs 4096] [--steps 3] [--train]
 """
 from __future__ import annotations
 
@@ -42,10 +43,8 @@ import time
 
 import torch
 
-from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
-from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
-from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
+from go2_rl_gym_tpu_torch.utils import registry
 
 
 def _event_ms(fn, iters):
@@ -72,7 +71,7 @@ def _kernels(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def profile_train(runner, rs, top):
+def profile_train(runner, rs, top, task):
     """See the module docstring, `--train`."""
     N, T = runner.env.num_envs, runner.num_steps
     rs, _ = runner.train_step(rs)        # untimed: first-call costs
@@ -123,7 +122,8 @@ def profile_train(runner, rs, top):
     busy = {k: sum(_device_us(e) for e in v) / 1e3 for k, v in kernels.items()}
     top_up = sorted(kernels["update"], key=_device_us, reverse=True)[:top]
     result = dict(
-        device=torch.cuda.get_device_name(0), num_envs=N, steps=T,
+        device=torch.cuda.get_device_name(0), task=task, num_envs=N,
+        steps=T,
         iteration_ms=iter_ms, env_steps_per_s=N * T / iter_ms * 1e3, **parts,
         profiled_wall_ms=wall, device_busy_ms=busy,
         device_busy_share={k: busy[k] / wall[k] for k in wall},
@@ -140,6 +140,8 @@ def profile_train(runner, rs, top):
 
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--task", default="go2_moe_cts",
+                   choices=registry.task_names())
     p.add_argument("--num_envs", type=int, default=4096)
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--top", type=int, default=15)
@@ -147,21 +149,19 @@ def main():
                    help="split whole train iterations instead of steps")
     args = p.parse_args()
 
-    cfg = Go2Cfg()
-    cfg.env.num_envs = args.num_envs
-    tc = go2_moe_cts_train_cfg()
-    env = Go2Env(cfg, num_steps_per_env=tc.runner.num_steps_per_env)
-    runner = OnPolicyRunner(env, tc)
+    cfg, tc = registry.get_cfgs(args.task)
+    env = registry.make_env(args.task, cfg, num_envs=args.num_envs,
+                            num_steps_per_env=tc.runner.num_steps_per_env)
+    runner = registry.make_runner(args.task, env, tc)
     rs = runner.init_runner_state(seed=0)
     if args.train:
-        return profile_train(runner, rs, args.top)
-    alg = runner.alg
+        return profile_train(runner, rs, args.top, args.task)
     N = env.num_envs
-    state, obs, priv, hist = rs.env_state, rs.obs, rs.priv_obs, rs.history
-    hist_flat = hist.reshape(N, -1)
+    state = rs.env_state
 
     def act():
-        return alg.act(obs, priv, hist_flat, gen=rs.gen)
+        return runner.act(rs.obs, rs.priv_obs, rs.history, rs.memory,
+                          gen=rs.gen)
 
     actions = act()[0]
     kp = (env.p_gains * state.kp_mult).expand(N, 12)
@@ -206,7 +206,7 @@ def main():
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=_device_us, reverse=True)[:args.top]
     result = dict(
-        device=torch.cuda.get_device_name(0), num_envs=N,
+        device=torch.cuda.get_device_name(0), task=args.task, num_envs=N,
         profiled_steps=args.steps, rollout_step_ms=step_ms,
         env_steps_per_s=N / step_ms * 1e3, **parts,
         profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,

@@ -1,16 +1,20 @@
-"""On-policy runner for the CTS algorithms
+"""On-policy runner for PPO, recurrent PPO and the six CTS algorithms
 (PyTorch port of go2_rl_gym_tpu/train/runner.py).
 
-Counterpart of reference rsl_rl/runners/on_policy_runner_cts.py:63-355. One
-train iteration (`train_step`) is the 24-step rollout with the student's
-obs-history buffer, GAE, and the PPO + distillation update; `learn` loops
-over iterations on the host, logs, and checkpoints.
+Counterpart of reference rsl_rl/runners/on_policy_runner.py:60-309 and
+on_policy_runner_cts.py:63-355; `train_cfg.runner.algorithm_class_name`
+selects the algorithm (JAX runner.py:65-84): "PPO" (agents/ppo.py),
+"RecurrentPPO" (agents/recurrent_ppo.py), else a CTS variant
+(agents/cts.py). One train iteration (`train_step`) is the 24-step rollout
+(with the student's obs-history buffer for CTS, the RNN memory for
+recurrent PPO), GAE, and the update; `learn` loops over iterations on the
+host, logs, and checkpoints.
 
 Where the state lives: everything the env and the rollout carry is in
-`RunnerState`; the train state (the model's parameters, both Adam states,
+`RunnerState`; the train state (the model's parameters, the Adam states,
 the adaptive learning rate) lives in the runner's algorithm object
-(`runner.alg`, agents/cts.py), whose parameters are updated in place.
-`save` writes both, so `load` resumes exactly.
+(`runner.alg`), whose parameters are updated in place. `save` writes both,
+so `load` resumes exactly.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import dataclasses
 import os
 import time
 from collections import deque
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -26,6 +30,8 @@ import yaml
 
 from go2_rl_gym_tpu_torch.agents import common
 from go2_rl_gym_tpu_torch.agents import cts as cts_lib
+from go2_rl_gym_tpu_torch.agents import ppo as ppo_lib
+from go2_rl_gym_tpu_torch.agents import recurrent_ppo
 from go2_rl_gym_tpu_torch.agents.networks import init_params
 from go2_rl_gym_tpu_torch.device import resolve_device
 from go2_rl_gym_tpu_torch.env.config import TrainCfg
@@ -37,19 +43,22 @@ class RunnerState(NamedTuple):
     env_state: EnvState
     obs: torch.Tensor
     priv_obs: torch.Tensor
-    history: torch.Tensor            # (N, L, num_obs)
+    history: torch.Tensor            # (N, L, num_obs); L = 1 if not CTS
     gen: torch.Generator             # action noise and the update's shuffle
     # episode bookkeeping (reference on_policy_runner.py:142-143)
     cur_reward_sum: torch.Tensor     # (N,)
     cur_episode_length: torch.Tensor  # (N,)
+    # recurrent PPO's RNN memory (recurrent_ppo.Memory); () for the others
+    memory: Any = ()
 
 
 class Rollout(NamedTuple):
-    traj: cts_lib.Transition         # stacked (T, N, ...)
+    traj: NamedTuple                 # stacked (T, N, ...) Transition
     last_values: torch.Tensor        # (N,) value of the state after step T
-    # [teacher reward sum, teacher length sum, teacher episodes,
-    #  student reward sum, student length sum, student episodes]
-    ep_stats: torch.Tensor           # (6,) over episodes ended in the rollout
+    # CTS: [teacher reward sum, teacher length sum, teacher episodes,
+    #       student reward sum, student length sum, student episodes];
+    # PPO and recurrent PPO: [reward sum, length sum, episodes]
+    ep_stats: torch.Tensor           # (6,) or (3,) over episodes ended
     metrics: Dict[str, torch.Tensor]  # env metrics, (T,) per name
 
 
@@ -79,15 +88,27 @@ def _unpack(template, data, device):
         g.set_state(data["generator_state"])
         return g
     if isinstance(template, tuple) and hasattr(template, "_fields"):
-        return type(template)(*[_unpack(getattr(template, k), data[k], device)
-                                for k in template._fields])
+        def field(k, v):
+            # a field may be missing only where the template holds an empty
+            # tuple: RunnerState.memory of a run saved before it existed
+            if k not in data and isinstance(v, tuple) and not v:
+                return ()
+            return data[k]
+        return type(template)(*[_unpack(v, field(k, v), device)
+                                for k, v in zip(template._fields, template)])
+    if isinstance(template, tuple):
+        if len(template) != len(data):
+            raise ValueError(f"checkpoint holds {len(data)} entries where "
+                             f"{len(template)} are expected")
+        return tuple(_unpack(t, d, device) for t, d in zip(template, data))
     if isinstance(template, dict):
         return {k: _unpack(template[k], data[k], device) for k in template}
     return data.to(device)
 
 
 class OnPolicyRunner:
-    """Runner for the six CTS variants (selected by train_cfg.runner).
+    """Runner for PPO, recurrent PPO and the six CTS variants (selected by
+    train_cfg.runner.algorithm_class_name).
 
     `device` defaults to the card and must be the env's device. With a
     `log_dir`, `learn` writes metrics and checkpoints there."""
@@ -106,13 +127,22 @@ class OnPolicyRunner:
         self.eval_interval = eval_interval
         self.num_steps = train_cfg.runner.num_steps_per_env
         self.save_interval = train_cfg.runner.save_interval
-        self.history_length = train_cfg.history_length
+        alg_name = train_cfg.runner.algorithm_class_name
+        self.is_recurrent = alg_name == "RecurrentPPO"
+        self.is_cts = alg_name not in ("PPO", "RecurrentPPO")
+        self.history_length = train_cfg.history_length if self.is_cts else 1
         num_critic_obs = env.num_privileged_obs or env.num_obs
-        self.alg = cts_lib.CTS(
-            train_cfg.runner.algorithm_class_name,
-            env.num_obs, num_critic_obs, env.num_actions, env.num_envs,
-            train_cfg.history_length, train_cfg.policy, train_cfg.algorithm,
-            device=self.device)
+        if self.is_cts:
+            self.alg = cts_lib.CTS(
+                alg_name, env.num_obs, num_critic_obs, env.num_actions,
+                env.num_envs, train_cfg.history_length, train_cfg.policy,
+                train_cfg.algorithm, device=self.device)
+        else:
+            cls = (recurrent_ppo.RecurrentPPO if self.is_recurrent
+                   else ppo_lib.PPO)
+            self.alg = cls(env.num_obs, num_critic_obs, env.num_actions,
+                           train_cfg.policy, train_cfg.algorithm,
+                           device=self.device)
         self.current_iteration = 0
         self.tot_timesteps = 0
         self.tot_time = 0.0
@@ -161,35 +191,66 @@ class OnPolicyRunner:
             env_state=env_state, obs=out.obs, priv_obs=out.privileged_obs,
             history=history, gen=gen,
             cur_reward_sum=torch.zeros(N, device=self.device),
-            cur_episode_length=torch.zeros(N, device=self.device))
+            cur_episode_length=torch.zeros(N, device=self.device),
+            memory=self.alg.zero_memory(N) if self.is_recurrent else ())
 
     # ------------------------------------------------------------------
+
+    def act(self, obs, priv, history, memory, gen=None, noise=None):
+        """One policy step of the runner's algorithm on the obs, privileged
+        obs, obs history (N, L, num_obs) and RNN memory (() unless
+        recurrent). Returns (actions, values, logp, mu, std, new memory)."""
+        if self.is_recurrent:
+            return self.alg.act(obs, priv, memory, gen=gen, noise=noise)
+        if self.is_cts:
+            out = self.alg.act(obs, priv, history.reshape(len(obs), -1),
+                               gen=gen, noise=noise)
+        else:
+            out = self.alg.act(obs, priv, gen=gen, noise=noise)
+        return (*out, memory)
+
+    def value(self, obs, priv, history, memory):
+        """The value of the runner's algorithm on the same inputs as act."""
+        if self.is_recurrent:
+            return self.alg.value(priv, memory)
+        if self.is_cts:
+            return self.alg.value(obs, priv, history.reshape(len(obs), -1))
+        return self.alg.value(priv)
 
     @torch.no_grad()
     def rollout(self, rs: RunnerState,
                 noise: Optional[torch.Tensor] = None):
-        """num_steps_per_env policy steps. `noise` (T, N, A), if given,
-        replaces the standard-normal action noise drawn from rs.gen.
-        Returns (RunnerState after the rollout, Rollout)."""
+        """num_steps_per_env policy steps (JAX runner.py:192-262). `noise`
+        (T, N, A), if given, replaces the standard-normal action noise drawn
+        from rs.gen. Returns (RunnerState after the rollout, Rollout)."""
         env, alg = self.env, self.alg
         gamma = self.cfg.algorithm.gamma
         N = env.num_envs
-        is_student = alg.is_student.to(torch.float32)
+        if self.is_cts:
+            is_student = alg.is_student.to(torch.float32)
         obs, priv, history = rs.obs, rs.priv_obs, rs.history
-        env_state = rs.env_state
+        env_state, mem = rs.env_state, rs.memory
         rew_sum, ep_len = rs.cur_reward_sum, rs.cur_episode_length
         steps, ep_stats, metrics = [], [], []
         for t in range(self.num_steps):
             hist_flat = history.reshape(N, -1)
-            actions, values, logp, mu, std = alg.act(
-                obs, priv, hist_flat, gen=rs.gen,
+            actions, values, logp, mu, std, mem = self.act(
+                obs, priv, history, mem, gen=rs.gen,
                 noise=None if noise is None else noise[t])
             env_state, out = env.step(env_state, actions)
+            if self.is_recurrent:
+                mem = alg.reset_memory(mem, out.done)
             rewards = alg.process_rewards(out.rew, values, out.time_outs, gamma)
-            steps.append(cts_lib.Transition(
-                obs=obs, critic_obs=priv, history=hist_flat, actions=actions,
-                rewards=rewards, dones=out.done, values=values,
-                log_probs=logp, mu=mu, sigma=std))
+            if self.is_cts:
+                steps.append(cts_lib.Transition(
+                    obs=obs, critic_obs=priv, history=hist_flat,
+                    actions=actions, rewards=rewards, dones=out.done,
+                    values=values, log_probs=logp, mu=mu, sigma=std))
+            else:
+                steps.append(ppo_lib.Transition(
+                    obs=obs, critic_obs=priv, actions=actions,
+                    rewards=rewards, dones=out.done, values=values,
+                    log_probs=logp, mu=mu, sigma=std))
             # history: zero on done, then append the new obs
             # (on_policy_runner_cts.py:155-156)
             history = torch.where(out.done[:, None, None], 0.0, history)
@@ -198,22 +259,28 @@ class OnPolicyRunner:
             rew_sum = rew_sum + out.rew
             ep_len = ep_len + 1.0
             done_f = out.done.to(torch.float32)
-            sd = done_f * is_student
-            td = done_f * (1.0 - is_student)
-            ep_stats.append(torch.stack([
-                torch.sum(rew_sum * td), torch.sum(ep_len * td), torch.sum(td),
-                torch.sum(rew_sum * sd), torch.sum(ep_len * sd),
-                torch.sum(sd)]))
+            if self.is_cts:
+                sd = done_f * is_student
+                td = done_f * (1.0 - is_student)
+                ep_stats.append(torch.stack([
+                    torch.sum(rew_sum * td), torch.sum(ep_len * td),
+                    torch.sum(td), torch.sum(rew_sum * sd),
+                    torch.sum(ep_len * sd), torch.sum(sd)]))
+            else:
+                ep_stats.append(torch.stack([
+                    torch.sum(rew_sum * done_f), torch.sum(ep_len * done_f),
+                    torch.sum(done_f)]))
             rew_sum = rew_sum * (1.0 - done_f)
             ep_len = ep_len * (1.0 - done_f)
             obs, priv = out.obs, out.privileged_obs
             metrics.append(out.metrics)
 
-        last_values = alg.value(obs, priv, history.reshape(N, -1))
-        traj = cts_lib.Transition(*[torch.stack(xs) for xs in zip(*steps)])
+        # recurrent: from the memory after the last step's reset
+        last_values = self.value(obs, priv, history, mem)
+        traj = type(steps[0])(*[torch.stack(xs) for xs in zip(*steps)])
         new_rs = rs._replace(env_state=env_state, obs=obs, priv_obs=priv,
                              history=history, cur_reward_sum=rew_sum,
-                             cur_episode_length=ep_len)
+                             cur_episode_length=ep_len, memory=mem)
         return new_rs, Rollout(
             traj=traj, last_values=last_values,
             ep_stats=torch.stack(ep_stats).sum(dim=0),
@@ -225,15 +292,17 @@ class OnPolicyRunner:
                    mark: Optional[Callable[[str], None]] = None):
         """One train iteration: rollout, GAE, update (JAX runner.py:182-295).
 
-        `noise` is passed to `rollout` and `perms` to `CTS.update` (both
-        drawn from rs.gen when not given). `mark`, if given, is called with
-        "rollout", "gae" and "update" as each phase has been issued, for
-        timing (it may synchronize the device). Returns (RunnerState,
-        metrics as tensors on the device): env metrics, `rew_*` and
-        `done_count` summed over the rollout and the others averaged,
-        `ep_stats` summed, the update's losses and learning rate, and
-        `mean_noise_std` where the family has a `std` parameter."""
+        `noise` is passed to `rollout` and `perms` to the algorithm's
+        `update` (both drawn from rs.gen when not given); recurrent PPO's
+        update replays from the rollout-start memory. `mark`, if given, is
+        called with "rollout", "gae" and "update" as each phase has been
+        issued, for timing (it may synchronize the device). Returns
+        (RunnerState, metrics as tensors on the device): env metrics,
+        `rew_*` and `done_count` summed over the rollout and the others
+        averaged, `ep_stats` summed, the update's losses and learning rate,
+        and `mean_noise_std` where the model has a `std` parameter."""
         mark = mark or (lambda phase: None)
+        mem0 = rs.memory            # rollout-start RNN memory for the replay
         rs, ro = self.rollout(rs, noise)
         mark("rollout")
         traj = ro.traj
@@ -242,8 +311,12 @@ class OnPolicyRunner:
             traj.rewards, traj.values, traj.dones, ro.last_values, cfg.gamma,
             cfg.lam)
         mark("gae")
-        loss_metrics = self.alg.update(traj, returns, advantages, gen=rs.gen,
-                                       perms=perms)
+        if self.is_recurrent:
+            loss_metrics = self.alg.update(traj, returns, advantages, mem0,
+                                           gen=rs.gen, perms=perms)
+        else:
+            loss_metrics = self.alg.update(traj, returns, advantages,
+                                           gen=rs.gen, perms=perms)
         mark("update")
 
         agg = {}
@@ -302,7 +375,7 @@ class OnPolicyRunner:
             if ep[2] > 0:
                 rewbuffer.append(ep[0] / ep[2])
                 lenbuffer.append(ep[1] / ep[2])
-            if ep[5] > 0:
+            if self.is_cts and ep[5] > 0:
                 srewbuffer.append(ep[3] / ep[5])
                 slenbuffer.append(ep[4] / ep[5])
             if self.writer and (it % log_every == 0 or it == tot_iter - 1):
@@ -346,22 +419,29 @@ class OnPolicyRunner:
                 w.add_scalar(f"Train/{name}", float(val), it)
         w.add_scalar("Perf/total_fps", fps, it)
         w.add_scalar("Perf/iteration_time", dt_iter, it)
-        if rewbuffer:
-            w.add_scalar("Train/mean_teacher_reward", np.mean(rewbuffer), it)
-            w.add_scalar("Train/mean_teacher_episode_length",
-                         np.mean(lenbuffer), it)
-        if srew:
-            w.add_scalar("Train/mean_student_reward", np.mean(srew), it)
-            w.add_scalar("Train/mean_student_episode_length",
-                         np.mean(slen), it)
+        if not self.is_cts:
+            if rewbuffer:
+                w.add_scalar("Train/mean_reward", np.mean(rewbuffer), it)
+                w.add_scalar("Train/mean_episode_length", np.mean(lenbuffer),
+                             it)
+        else:
+            if rewbuffer:
+                w.add_scalar("Train/mean_teacher_reward", np.mean(rewbuffer),
+                             it)
+                w.add_scalar("Train/mean_teacher_episode_length",
+                             np.mean(lenbuffer), it)
+            if srew:
+                w.add_scalar("Train/mean_student_reward", np.mean(srew), it)
+                w.add_scalar("Train/mean_student_episode_length",
+                             np.mean(slen), it)
         w.flush()
 
     # ------------------------------------------------------------------
 
     def save(self, rs: RunnerState, path: str):
         """Checkpoint everything (torch.save): the train state (parameters,
-        both Adam states, the learning rate), the runner state (env state
-        with its generator, obs, history, episode sums, the noise
+        Adam states, the learning rate), the runner state (env state with its
+        generator, obs, history, episode sums, the RNN memory, the noise
         generator) and the iteration, so that `load` resumes exactly."""
         torch.save({"iteration": self.current_iteration,
                     "train_state": self.alg.train_state_dict(),
@@ -392,6 +472,7 @@ class OnPolicyRunner:
         return self.get_inference_params()
 
     def get_inference_params(self) -> Dict[str, torch.Tensor]:
-        """A copy of the model's parameters by name (both groups)."""
+        """A copy of the model's parameters by name (for CTS, both
+        groups)."""
         return {k: p.detach().clone()
                 for k, p in self.alg.model.named_parameters()}

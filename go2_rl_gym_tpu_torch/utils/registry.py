@@ -2,9 +2,8 @@
 name -> (env cfg, train cfg) factories.
 
 Counterpart of reference legged_gym/utils/task_registry.py:15-129 +
-legged_gym/envs/__init__.py:9-15. The six CTS tasks are ported; the PPO
-task, the recurrent one and the ablation variants are registered by name
-and raise until their algorithms are ported.
+legged_gym/envs/__init__.py:9-15: the same eleven tasks as the JAX package
+(the seven reference tasks, recurrent PPO and the three ablation variants).
 """
 from __future__ import annotations
 
@@ -13,14 +12,11 @@ from datetime import datetime
 from typing import Callable, Dict, Optional, Tuple
 
 from go2_rl_gym_tpu_torch.env import config as cfgs
+from go2_rl_gym_tpu_torch.env import config_variants as _variants
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
 
 _REGISTRY: Dict[str, Tuple[Callable, Callable]] = {}
-# tasks of the JAX package whose algorithm (PPO, recurrent PPO) or config
-# variants the port does not have yet
-NOT_PORTED = ("go2", "go2_lstm", "go2_vanilla", "go2_vanilla_dynamic_cmd",
-              "go2_fast_flat_move")
 
 
 def register(name: str, env_cfg_fn: Callable, train_cfg_fn: Callable):
@@ -32,10 +28,6 @@ def task_names():
 
 
 def get_cfgs(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"task {name!r} is not ported to go2_rl_gym_tpu_torch yet; "
-            f"ported tasks: {task_names()}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown task {name!r}; available: {task_names()}")
     env_cfg_fn, train_cfg_fn = _REGISTRY[name]
@@ -67,10 +59,21 @@ def make_runner(name: str, env: Go2Env, train_cfg=None,
     return OnPolicyRunner(env, train_cfg, log_dir=log_dir, device=device)
 
 
-# ---- the six CTS tasks of the reference (legged_gym/envs/__init__.py) ----
+# ---- the seven reference tasks (legged_gym/envs/__init__.py:9-15) ----
+register("go2", cfgs.Go2Cfg, cfgs.go2_ppo_train_cfg)
 register("go2_cts", cfgs.Go2Cfg, cfgs.go2_cts_train_cfg)
 register("go2_moe_cts", cfgs.Go2Cfg, cfgs.go2_moe_cts_train_cfg)
 register("go2_moe_ng_cts", cfgs.Go2Cfg, cfgs.go2_moe_ng_cts_train_cfg)
 register("go2_mcp_cts", cfgs.Go2Cfg, cfgs.go2_mcp_cts_train_cfg)
 register("go2_ac_moe_cts", cfgs.Go2Cfg, cfgs.go2_ac_moe_cts_train_cfg)
 register("go2_dual_moe_cts", cfgs.Go2Cfg, cfgs.go2_dual_moe_cts_train_cfg)
+# recurrent PPO (the reference ships the module but registers no task)
+register("go2_lstm", cfgs.Go2Cfg, cfgs.go2_lstm_train_cfg)
+
+# ---- ablation variant tasks (reference go2_config_{vanilla,...}.py) ----
+register("go2_vanilla", _variants.go2_vanilla_cfg,
+         _variants.go2_vanilla_train_cfg)
+register("go2_vanilla_dynamic_cmd", _variants.go2_vanilla_dynamic_cmd_cfg,
+         _variants.go2_vanilla_train_cfg)
+register("go2_fast_flat_move", _variants.go2_fast_flat_move_cfg,
+         _variants.go2_fast_flat_move_train_cfg)

@@ -59,12 +59,14 @@ def test_guard_flags_the_old_package():
 
 def test_entry_points_default_to_the_card():
     from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+    from go2_rl_gym_tpu_torch.env.vec_env import VecEnvAdapter
     from go2_rl_gym_tpu_torch.scripts import train
     from go2_rl_gym_tpu_torch.scripts.play import play
     from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
     from go2_rl_gym_tpu_torch.utils import registry
     for fn in (Go2Env.__init__, OnPolicyRunner.__init__, play,
-               registry.make_env, registry.make_runner):
+               registry.make_env, registry.make_runner,
+               VecEnvAdapter.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert train.get_args([]).device == "cuda"
     # train_step and learn run on the runner's device, the card by default

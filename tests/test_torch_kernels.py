@@ -1,6 +1,7 @@
 """PyTorch port on the card: the hand-written CUDA kernels against their
-plain versions, the card's env step and CTS update against the CPU path,
-and a checkpoint of a run on the card restored on the card.
+plain versions, the card's env step and CTS, PPO and recurrent-PPO updates
+against the CPU path, and checkpoints of runs on the card restored on the
+card.
 
 Every test here is marked `gpu` and skips itself without a card. The file
 imports torch only, so it runs on a machine without JAX:
@@ -86,16 +87,36 @@ def test_update_on_card_matches_cpu():
     assert max(worst.values()) <= card_check.UPDATE_ATOL
 
 
-def _card_runner(num_envs=8):
-    from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
+@pytest.mark.gpu
+def test_ppo_update_on_card_matches_cpu():
+    """One full-width PPO.update of the go2 task on both devices
+    (card_check.ppo_update_card_vs_cpu)."""
+    _card()
+    worst = card_check.ppo_update_card_vs_cpu()
+    assert max(worst.values()) <= card_check.UPDATE_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
+def test_recurrent_update_on_card_matches_cpu(rnn_type):
+    """One full-width RecurrentPPO.update of the go2_lstm task on both
+    devices (card_check.recurrent_update_card_vs_cpu)."""
+    _card()
+    worst = card_check.recurrent_update_card_vs_cpu(rnn_type=rnn_type)
+    assert max(worst.values()) <= card_check.UPDATE_ATOL
+
+
+def _card_runner(num_envs=8, task="go2_moe_cts"):
+    from go2_rl_gym_tpu_torch.env.config import Go2Cfg
     from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
     from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
+    from go2_rl_gym_tpu_torch.utils import registry
     cfg = Go2Cfg()
     cfg.env.num_envs = num_envs
     cfg.terrain.mesh_type = "plane"
     cfg.terrain.measure_heights = False
     cfg.terrain.curriculum = False
-    tc = go2_moe_cts_train_cfg()
+    _, tc = registry.get_cfgs(task)
     tc.runner.num_steps_per_env = 4
     return OnPolicyRunner(Go2Env(cfg, num_steps_per_env=4), tc)
 
@@ -127,4 +148,28 @@ def test_checkpoint_round_trip_on_card(tmp_path):
     for x, y in ((rs.obs, rs_b.obs), (rs.history, rs_b.history),
                  (rs.env_state.sim.q, rs_b.env_state.sim.q)):
         assert torch.equal(x, y)
+    b.train_step(rs_b)                   # and it trains on
+
+
+@pytest.mark.gpu
+def test_recurrent_checkpoint_round_trip_on_card(tmp_path):
+    """go2_lstm: save after a train iteration on the card, load into a fresh
+    runner on the card: the weights, the Adam state and the carried memory
+    come back equal, on the card."""
+    _card()
+    a = _card_runner(task="go2_lstm")
+    rs, _ = a.train_step(a.init_runner_state(0, init_at_random_ep_len=True))
+    path = str(tmp_path / "model_1.pt")
+    a.save(rs, path)
+    b = _card_runner(task="go2_lstm")
+    rs_b = b.load(b.init_runner_state(5), path)
+    for x, y in zip(a.alg.model.state_dict().values(),
+                    b.alg.model.state_dict().values()):
+        assert torch.equal(x, y)
+    assert all(torch.equal(u, v) for u, v in zip(a.alg.opt.mu + a.alg.opt.nu,
+                                                 b.alg.opt.mu + b.alg.opt.nu))
+    for x, y in zip((*rs.memory.a, *rs.memory.c),
+                    (*rs_b.memory.a, *rs_b.memory.c)):
+        assert y.is_cuda and torch.equal(x, y)
+    assert float(rs_b.memory.a.h.abs().max()) > 0
     b.train_step(rs_b)                   # and it trains on

@@ -203,6 +203,9 @@ def _snapshot(runner, rs):
         elif isinstance(x, dict):
             for k, v in x.items():
                 walk(f"{prefix}.{k}", v)
+        elif isinstance(x, tuple):      # RunnerState.memory, () for CTS
+            for i, v in enumerate(x):
+                walk(f"{prefix}.{i}", v)
         else:
             out[prefix] = x.clone()
     walk("rs", rs)
@@ -261,6 +264,29 @@ def test_resume_is_exact(tmp_path):
         assert torch.equal(m_a[k], m_b[k]), k
 
 
+def test_checkpoint_without_memory_loads(tmp_path):
+    """A CTS checkpoint written before RunnerState had its `memory` field
+    (empty for CTS) loads and resumes as one that has it."""
+    a = _plane_runner()
+    rs = a.init_runner_state(0)
+    path = str(tmp_path / "model_0.pt")
+    a.save(rs, path)
+    ck = torch.load(path, weights_only=True)
+    assert ck["runner_state"].pop("memory") == ()
+    old = str(tmp_path / "old.pt")
+    torch.save(ck, old)
+    b = _plane_runner()
+    rs_b = b.load(b.init_runner_state(5), old)
+    assert rs_b.memory == ()
+    sa, sb = _snapshot(a, rs), _snapshot(b, rs_b)
+    assert sorted(sa) == sorted(sb)
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    ck["runner_state"].pop("obs")
+    torch.save(ck, old)
+    with pytest.raises(KeyError):
+        b.load(b.init_runner_state(5), old)
+
+
 def test_load_params_across_env_counts(tmp_path):
     r16 = _plane_runner(16)
     rs = r16.init_runner_state(0)
@@ -293,7 +319,7 @@ def test_train_script_runs_and_resumes(tmp_path):
 
 
 def test_script_rejects_what_is_not_ported():
+    """Every registered task trains (tests/test_torch_tasks.py runs go2);
+    the sim2sim eval hook is not ported yet."""
     with pytest.raises(NotImplementedError, match="eval hook"):
         train_script.main(["--eval_interval", "5", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train_script.main(["--task", "go2", "--device", "cpu"])
