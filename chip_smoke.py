@@ -33,16 +33,35 @@ Phases (any failure exits non-zero and prints no result line):
    LSTM of 256; its carried memory must be non-zero after the iterations),
    both on the flagship rough terrain, and one iteration of the
    go2_fast_flat_move task on the plane, at 4096 envs and full width.
-   For 5 to 8 every launch count is set to 0 just before each run and
-   read just after; each rough-terrain policy step must launch the patch
-   kernel once (24 per train iteration) and the plane none, and obs and
-   rewards must be finite.
-9. Print one JSON line listing every kernel, then the device line.
+9. Main path, train ddp (go2_rl_gym_tpu_torch.distributed): (a) the
+   go2_moe_cts task at 4096 global envs on the flagship terrain, trained
+   2 iterations by torch.cuda.device_count() NCCL ranks under
+   torch.distributed.run (the check worker builds it through the registry
+   on a mesh), with each rank's and the total env-steps/s and each rank's
+   patch launches (24 per iteration); the ranks' parameters must be equal,
+   the losses finite, and a checkpoint saved by the ranks must load back
+   equal on every rank; the GAE, update and metrics of one more iteration
+   under torch.profiler give the collectives' calls, host time and NCCL
+   kernel time. (b) Two gloo ranks on the one card, 2048 envs
+   each, take one train iteration from a seeded state with randomness off,
+   warm Adam moments and injected noise and permutations; one process on
+   the same card takes the same iteration: parameters within 1e-5 of it
+   and bitwise equal across the ranks. The iteration is cut to 6 policy
+   steps: from step 9 on, robots spawned on the rough terrain start to fall
+   and reset, and a reset draws from each rank's own generator.
+   For 5 to 9 every launch count is set to 0 just before each run and
+   read just after (in the ranks' processes for 9); each rough-terrain
+   policy step must launch the patch kernel once (24 per train iteration)
+   and the plane none, and obs and rewards must be finite. Every spawned
+   process has a timeout and is killed with its process group on failure.
+10. Print one JSON line listing every kernel, then the device line.
 """
 from __future__ import annotations
 
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -52,6 +71,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_ENVS = 4096
 STEPS = 24
 H100_BYTES_PER_S = 3.35e12      # published HBM3 rate, H100 SXM
+DDP_DIR = os.path.join(ROOT, "build", "ddp")
+DDP_PARITY_STEPS = 6
+RANK_TIMEOUT_S = 400            # for any spawned process
 
 
 def fail(msg):
@@ -332,6 +354,146 @@ def phase_train(task="go2_moe_cts", iterations=2):
     return runs[-1][2]
 
 
+def run_ranks(cmds):
+    """Run the commands at once, each in its own process group, and wait;
+    kill every group on a failure or after RANK_TIMEOUT_S. Returns the
+    outputs; raises if any command failed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              start_new_session=True) for c in cmds]
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=max(1.0,
+                                               deadline - time.monotonic()))
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.communicate()
+    bad = [(p.returncode, out[-3000:]) for p, out in zip(procs, outs)
+           if p.returncode]
+    if bad:
+        raise AssertionError(f"a rank failed: {bad}")
+    return outs
+
+
+def worker(job_path, out, backend, device):
+    return ["-m", "go2_rl_gym_tpu_torch.distributed.check", "--job",
+            job_path, "--out", out, "--backend", backend, "--device", device,
+            "--timeout", "120"]
+
+
+def phase_train_ddp():
+    """(a) NCCL ranks training go2_moe_cts, (b) two gloo ranks against one
+    process on the card (see the module docstring). Returns the launch
+    counts of the ranks' last iteration, summed over the ranks."""
+    import torch
+    from go2_rl_gym_tpu_torch.distributed import check
+
+    os.makedirs(DDP_DIR, exist_ok=True)
+    world = torch.cuda.device_count()
+    job_path = os.path.join(DDP_DIR, "train_job.pt")
+    torch.save({"jobs": [dict(kind="train", task="go2_moe_cts",
+                              num_envs=NUM_ENVS, iterations=2,
+                              checkpoint=os.path.join(DDP_DIR, "model.pt"),
+                              profile=True)]}, job_path)
+    out = os.path.join(DDP_DIR, "train")
+    run_ranks([[sys.executable, "-m", "torch.distributed.run",
+                "--standalone", f"--nproc_per_node={world}"]
+               + worker(job_path, out, "nccl", "cuda")])
+    res = [torch.load(f"{out}.rank{r}", weights_only=True)[0]
+           for r in range(world)]
+    local = NUM_ENVS // world
+    for i in range(2):
+        dt = max(r["times"][i] for r in res)
+        print(f"train ddp (a): nccl, world {world}, {local} envs per rank, "
+              f"iteration {i} ({'timed' if i else 'untimed'}): rank "
+              f"env-steps/s {[round(r['rank_env_steps_per_s'][i], 1) for r in res]}"
+              f", total {STEPS * NUM_ENVS / dt:.1f} env-steps/s "
+              f"({dt * 1e3:.1f} ms, host clock ending in a synchronize); "
+              f"patch launches per rank "
+              f"{[r['launches'][i]['extract_patches'] for r in res]}")
+    for r, rr in enumerate(res):
+        if [c["extract_patches"] for c in rr["launches"]] != [STEPS] * 2:
+            raise AssertionError(f"rank {r} launched {rr['launches']}")
+        bad = [k for k, v in rr["metrics"].items()
+               if not bool(torch.isfinite(v).all())]
+        if bad or not rr["obs_finite"]:
+            raise AssertionError(f"rank {r}: non-finite {bad} or obs")
+        if not rr["checkpoint_roundtrip"]:
+            raise AssertionError(f"rank {r}: the checkpoint did not load "
+                                 f"back equal")
+        for k, v in rr["params"].items():
+            if not torch.equal(v, res[0]["params"][k]):
+                raise AssertionError(f"rank {r} parameter {k} differs")
+    print(f"train ddp (a): checkpoint gathered by rank 0 and loaded back "
+          f"by every rank: equal")
+    for r, rr in enumerate(res):
+        prof = rr["profile"]
+        print(f"train ddp (a) rank {r}, one more iteration, GAE + update + "
+              f"metrics under torch.profiler: {prof['wall_ms']:.1f} ms wall, "
+              f"device busy "
+              f"{prof['device_busy_ms']:.1f} ms in {prof['launches']} "
+              f"launches, NCCL kernels {prof['nccl_device_ms']:.3f} ms in "
+              f"{prof['nccl_launches']}; collective calls [count, host ms]: "
+              f"{json.dumps(prof['collective_calls_host_ms'])}")
+    m = res[0]["metrics"]
+    print("train ddp (a) metrics: " + json.dumps(
+        {k: round(float(m[k]), 6) for k in ("value_loss", "surrogate_loss",
+                                            "latent_loss", "learning_rate",
+                                            "done_count")}))
+
+    # (b) two gloo ranks on this card against one process
+    job = check.parity_job("go2_moe_cts", NUM_ENVS, DDP_PARITY_STEPS, "cuda")
+    job_path = os.path.join(DDP_DIR, "parity_job.pt")
+    torch.save({"jobs": [job]}, job_path)
+    out = os.path.join(DDP_DIR, "parity")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cmds = [[sys.executable] + worker(job_path, out, "gloo", "cuda:0")
+            + ["--coordinator", f"localhost:{port}", "--world", "2",
+               "--rank", str(r)] for r in range(2)]
+    t = time.perf_counter()
+    run_ranks(cmds)
+    ranks_s = time.perf_counter() - t
+    ref = check.run_step(job, "cuda")
+    r0, r1 = (torch.load(f"{out}.rank{r}", weights_only=True)[0]
+              for r in range(2))
+    if bool(ref["dones"].any()):
+        raise AssertionError(f"{int(ref['dones'].sum())} resets in the "
+                             f"parity window")
+    same = all(torch.equal(r0["params"][k], r1["params"][k])
+               for k in r0["params"])
+    err = max(float((r0["params"][k] - v).abs().max())
+              for k, v in ref["params"].items())
+    moved = max(float((v - job["train_state"]["model"][k]).abs().max())
+                for k, v in ref["params"].items())
+    ret = max(float((torch.cat([r0[k], r1[k]], 1) - ref[k]).abs().max())
+              for k in ("returns", "advantages"))
+    metric_rel = max(float(((r0["metrics"][k] - v).abs()
+                            / v.abs().clamp(min=1e-6)).max())
+                     for k, v in ref["metrics"].items())
+    print(f"train ddp (b): 2 gloo ranks x {NUM_ENVS // 2} envs on one card "
+          f"vs one process, one iteration of {DDP_PARITY_STEPS} steps "
+          f"(ranks {ranks_s:.1f} s with start-up): params max_abs_err "
+          f"{err:.3e} (tol 1e-5; largest move {moved:.3e}), bitwise equal "
+          f"across ranks {same}, returns/advantages max_abs_err {ret:.3e}, "
+          f"metrics max rel err {metric_rel:.3e}, learning rates "
+          f"{float(r0['lr'])} / {float(ref['lr'])}")
+    if not (same and err <= 1e-5 and moved > 1e-4
+            and float(r0["lr"]) == float(ref["lr"])):
+        raise AssertionError("two ranks disagree with one process")
+    return {"extract_patches": sum(r["launches"][-1]["extract_patches"]
+                                   for r in res)}
+
+
 def main():
     sys.path.insert(0, ROOT)
     try:
@@ -375,7 +537,8 @@ def main():
               ("train go2", lambda: phase_train("go2")),
               ("train go2_lstm", lambda: phase_train("go2_lstm")),
               ("train go2_fast_flat_move",
-               lambda: phase_train("go2_fast_flat_move", iterations=1))]
+               lambda: phase_train("go2_fast_flat_move", iterations=1)),
+              ("train ddp", phase_train_ddp)]
     launches = {}
     for name, fn in phases:
         t = time.perf_counter()

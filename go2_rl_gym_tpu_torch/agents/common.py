@@ -6,6 +6,10 @@ learning rate (reference ppo.py:139-151), and the optimizer of the JAX
 package: optax's clip-by-global-norm followed by Adam(0.9, 0.999, 1e-8), with
 a learning rate that is a 0-d tensor on the device, so that the adaptive-KL
 schedule never reads a value back to the host.
+
+Under a data-parallel mesh (distributed/mesh.py) GAE normalises by the
+global batch's moments, and `minibatch_step` sums the ranks' gradients (and
+KL sums) before the clip, so that every rank takes the same step.
 """
 from __future__ import annotations
 
@@ -13,6 +17,8 @@ import math
 from typing import List, NamedTuple, Optional
 
 import torch
+
+from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -43,13 +49,16 @@ def gaussian_entropy(std):
                      dim=-1)
 
 
-def compute_gae(rewards, values, dones, last_values, gamma, lam):
+def compute_gae(rewards, values, dones, last_values, gamma, lam,
+                mesh: Optional[mesh_lib.Mesh] = None):
     """Generalized advantage estimation, reverse loop over T.
 
-    Args: rewards/values/dones (T, N); last_values (N,).
+    Args: rewards/values/dones (T, N); last_values (N,); under a `mesh`
+    this rank's N envs of the global batch.
     Returns (returns (T, N), advantages normalized over the whole batch
-    (T, N)). The normalization uses the population std, as JAX's
-    `jnp.std` does."""
+    (T, N)). The normalization uses the mean and then the mean squared
+    deviation over every rank's T * N samples: the population std, as JAX's
+    `jnp.std` computes it."""
     T = rewards.shape[0]
     next_values = torch.cat([values[1:], last_values[None]], dim=0)
     not_terminal = 1.0 - dones.to(torch.float32)
@@ -61,23 +70,57 @@ def compute_gae(rewards, values, dones, last_values, gamma, lam):
         advs[t] = adv
     advs = torch.stack(advs)
     returns = advs + values
-    norm_advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+    count = advs.numel() * (mesh.world if mesh else 1)
+    (total,) = mesh_lib.all_reduce(mesh, [advs.sum()])
+    mean = total / count
+    (sq_dev,) = mesh_lib.all_reduce(mesh, [torch.square(advs - mean).sum()])
+    norm_advs = (advs - mean) / (torch.sqrt(sq_dev / count) + 1e-8)
     return returns, norm_advs
 
 
-def adaptive_kl_lr(lr, mu, sigma, old_mu, old_sigma, desired_kl):
-    """KL-driven LR update (reference ppo.py:139-151); `lr` is a 0-d tensor
-    and stays on its device. Returns (lr, kl_mean)."""
-    kl = torch.sum(
+def kl_divergence(mu, sigma, old_mu, old_sigma):
+    """Per-sample KL of the old diagonal Gaussian from the new one, summed
+    over the action dim (reference ppo.py:141-144)."""
+    return torch.sum(
         torch.log(sigma / old_sigma + 1e-5)
         + (torch.square(old_sigma) + torch.square(old_mu - mu))
         / (2.0 * torch.square(sigma)) - 0.5, dim=-1)
-    kl_mean = torch.mean(kl)
+
+
+def kl_lr(lr, kl_mean, desired_kl):
+    """The adaptive schedule's step (reference ppo.py:145-151): divide `lr`
+    by 1.5 above twice the desired KL, multiply it below half; `lr` is a 0-d
+    tensor and stays on its device."""
     lr = torch.where(kl_mean > desired_kl * 2.0,
                      torch.clamp(lr / 1.5, min=1e-5), lr)
-    lr = torch.where((kl_mean < desired_kl / 2.0) & (kl_mean > 0.0),
-                     torch.clamp(lr * 1.5, max=1e-2), lr)
-    return lr, kl_mean
+    return torch.where((kl_mean < desired_kl / 2.0) & (kl_mean > 0.0),
+                       torch.clamp(lr * 1.5, max=1e-2), lr)
+
+
+def adaptive_kl_lr(lr, mu, sigma, old_mu, old_sigma, desired_kl):
+    """KL-driven LR update (reference ppo.py:139-151) over the samples
+    given. Returns (lr, kl_mean)."""
+    kl_mean = torch.mean(kl_divergence(mu, sigma, old_mu, old_sigma))
+    return kl_lr(lr, kl_mean, desired_kl), kl_mean
+
+
+def minibatch_step(mesh: Optional[mesh_lib.Mesh], loss, params,
+                   opt: "AdamState", lr, max_grad_norm, kl_sum=None,
+                   count=None, desired_kl=None):
+    """One optimizer step on a minibatch of which this rank holds some
+    members: `loss` is their share of the minibatch loss (sums over the
+    global counts), `kl_sum`, for the adaptive LR, the sum of their KLs
+    (`kl_divergence`). The gradients and the KL sum are summed over the
+    ranks in one all_reduce; the LR then follows the minibatch's mean KL
+    (over `count` samples), and the clip and Adam run on every rank alike.
+    Returns (Adam state, lr)."""
+    grads = list(torch.autograd.grad(loss, params))
+    extra = [] if kl_sum is None else [kl_sum]
+    reduced = mesh_lib.all_reduce(mesh, grads + extra)
+    if kl_sum is not None:
+        lr = kl_lr(lr, reduced[-1] / count, desired_kl)
+    return adam_step(params, reduced[:len(grads)], opt, lr,
+                     max_grad_norm), lr
 
 
 def surrogate_loss(logp, old_logp, advantages, clip_param):

@@ -18,8 +18,14 @@ the shared training skeleton:
 
 The train state (the model's two parameter groups, two Adam states and the
 learning rate as a 0-d fp32 tensor) lives in this object; the parameters are
-the model's, updated in place. Nothing in `update` reads a value back to the
-host: its metrics are tensors on the device.
+the model's, updated in place. Without a mesh nothing in `update` reads a
+value back to the host: its metrics are tensors on the device.
+
+Under a data-parallel mesh (`attach_mesh`, distributed/mesh.py) the env
+split is that of the global env ids, the minibatches are those of one
+process over the global batch, and each rank computes its members' share of
+every loss (sums over the global counts); `update` then reads the members'
+counts back once.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from go2_rl_gym_tpu_torch.agents import common
 from go2_rl_gym_tpu_torch.agents.networks import CTSFamily, make_cts_model
+from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.env.config import AlgorithmCfg, PolicyCfg
 
 STUDENT_PARAM_KEYS = ("student_encoder",)
@@ -99,7 +106,7 @@ class CTS:
         self.num_envs = num_envs
         self.history_length = history_length
 
-        # static env split (reference cts.py:93-101)
+        # static env split over the global env ids (reference cts.py:93-101)
         ratio = alg_cfg.teacher_env_ratio
         stride = int(round(1.0 / (1.0 - ratio)))
         self.student_envs = np.array(
@@ -110,9 +117,22 @@ class CTS:
         self.num_student = len(self.student_envs)
         is_student = np.zeros(num_envs, bool)
         is_student[self.student_envs] = True
-        self.is_student = torch.as_tensor(is_student, device=self.device)
+        # the rollout's mask, of this rank's envs under a mesh
+        self.is_student = self._is_student_all = torch.as_tensor(
+            is_student, device=self.device)
+        self.mesh: Optional[mesh_lib.Mesh] = None
         self._flat_idx = {}
         self.reset_train_state()
+
+    def attach_mesh(self, mesh: mesh_lib.Mesh):
+        """Train as rank `mesh.rank` of a data-parallel run over the
+        `num_envs` envs: the rollout's student mask becomes this rank's
+        slice, and `update` takes this rank's members of the minibatches."""
+        if mesh.num_envs != self.num_envs:
+            raise ValueError(f"the mesh covers {mesh.num_envs} envs, the "
+                             f"algorithm {self.num_envs}")
+        self.mesh = mesh
+        self.is_student = self._is_student_all[mesh.env_slice]
 
     # ------------------------------------------------------------------
     # Train state
@@ -196,8 +216,8 @@ class CTS:
 
     def _flat_indices(self, T):
         """Static flat positions of teacher/student samples in env-major
-        (N, T) flattened storage, on the device (made once per T: a copy
-        from the host would wait for the device)."""
+        (N, T) flattened storage of the global batch, on the device (made
+        once per T: a copy from the host would wait for the device)."""
         if T not in self._flat_idx:
             ar = np.arange(T)[None, :]
             self._flat_idx[T] = tuple(
@@ -206,48 +226,60 @@ class CTS:
                 for envs in (self.teacher_envs, self.student_envs))
         return self._flat_idx[T]
 
-    def _ppo_loss(self, mb, tmb):
-        """Pass-1 loss on one minibatch (teacher samples first). Returns
-        (loss, (value loss, surrogate, entropy, actor load balance), mu,
-        std)."""
+    def _load_balance(self, gate, count):
+        """The MoE load-balance term of a minibatch of `count` samples of
+        which `gate` holds this rank's gate weights: mean((mean usage -
+        1/E)^2). It is nonlinear in the minibatch mean, so the usage sums
+        are all-reduced inside autograd before the square; every rank
+        computes the whole term and takes 1/world of it, so that the ranks'
+        shares, like their gradients, sum to one process's."""
+        usage = mesh_lib.all_reduce_autograd(self.mesh, gate.sum(dim=0))
+        lb = torch.mean(torch.square(usage / count
+                                     - 1.0 / self.model.expert_num))
+        return lb / (self.mesh.world if self.mesh else 1)
+
+    def _ppo_loss(self, mb, tc, tmb, smb):
+        """Pass-1 loss on this rank's members of one minibatch of `tmb`
+        teacher and `smb` student samples: its `tc` teacher samples first,
+        then its students. Returns (loss, (value loss, surrogate, entropy,
+        actor load balance), mu, std), each this rank's share."""
         cfg, model = self.cfg, self.model
         with torch.no_grad():
-            lat_s, _ = model.s_latent(mb["history"][tmb:])
-        lat_t = model.t_latent(mb["critic_obs"][:tmb])
+            lat_s, _ = model.s_latent(mb["history"][tc:])
+        lat_t = model.t_latent(mb["critic_obs"][:tc])
         latent = torch.cat([lat_t, lat_s], dim=0)
         mu, std, _ = model.dist(latent, mb["obs"])
         logp = common.gaussian_log_prob(mu, std, mb["actions"])
         lat_sg = latent.detach()
         values, ac_w = model.val(lat_sg, mb["critic_obs"], mb["obs"])
-        entropy = common.gaussian_entropy(std).mean()
+        entropy = common.gaussian_entropy(std).sum() / (tmb + smb)
         surr = common.surrogate_loss(logp, mb["log_probs"], mb["advantages"],
                                      cfg.clip_param)
-        surr_loss = surr[:tmb].mean() + surr[tmb:].mean()
+        surr_loss = surr[:tc].sum() / tmb + surr[tc:].sum() / smb
         vloss = common.clipped_value_loss(
             values, mb["values"], mb["returns"], cfg.clip_param,
-            cfg.use_clipped_value_loss).mean()
+            cfg.use_clipped_value_loss).sum() / (tmb + smb)
         loss = surr_loss + cfg.value_loss_coef * vloss \
             - cfg.entropy_coef * entropy
         ac_lb = torch.zeros((), device=loss.device)
         if self.family in ACTOR_MOE:
-            mean_usage = torch.mean(ac_w, dim=0)
-            ac_lb = torch.mean(torch.square(mean_usage
-                                            - 1.0 / model.expert_num))
+            ac_lb = self._load_balance(ac_w, tmb + smb)
             loss = loss + cfg.load_balance_coef * ac_lb
         return loss, (vloss, surr_loss, entropy, ac_lb), mu, std
 
-    def _distill_loss(self, hist, priv):
-        """Pass-2 loss on the student samples of one minibatch. Returns
-        (loss, (latent loss, student load balance))."""
+    def _distill_loss(self, hist, priv, smb):
+        """Pass-2 loss on this rank's student samples of one minibatch of
+        `smb` student samples. Returns (loss, (latent loss, student load
+        balance)), each this rank's share."""
         model = self.model
         s_lat, gate = model.s_latent(hist)
         with torch.no_grad():
             t_lat = model.t_latent(priv)
-        latent_loss = torch.mean(torch.square(t_lat - s_lat))
+        latent_loss = torch.sum(torch.square(t_lat - s_lat)) / (
+            smb * s_lat.shape[-1])
         loss, lb = latent_loss, torch.zeros((), device=latent_loss.device)
         if self.family in STUDENT_MOE:
-            mean_usage = torch.mean(gate, dim=0)
-            lb = torch.mean(torch.square(mean_usage - 1.0 / model.expert_num))
+            lb = self._load_balance(gate, smb)
             loss = loss + self.cfg.load_balance_coef * lb
         return loss, (latent_loss, lb)
 
@@ -260,9 +292,11 @@ class CTS:
         The teacher and student sample pools are shuffled once per update:
         by `perms` = (teacher permutation, student permutation) of
         range(num_teacher * T) and range(num_student * T) if given, else by
-        torch.randperm from `gen`. Returns the metrics as 0-d tensors."""
+        torch.randperm from `gen` (under a mesh, the same on every rank).
+        Returns the metrics as 0-d tensors (under a mesh, this rank's shares
+        of them, which sum over the ranks to the global values)."""
         cfg = self.cfg
-        T, N = batch.rewards.shape
+        T, N = batch.rewards.shape          # N: this rank's envs
         nmb = cfg.num_mini_batches
         tmb = self.num_teacher * T // nmb
         smb = self.num_student * T // nmb
@@ -276,18 +310,24 @@ class CTS:
             perms = (torch.randperm(len(t_pos), generator=gen, device=dev),
                      torch.randperm(len(s_pos), generator=gen, device=dev))
         t_perm, s_perm = (torch.as_tensor(p, device=dev).long() for p in perms)
-        # one shuffle reused across epochs, teacher-first per minibatch;
-        # the shuffled pools are gathered once, minibatches are slices
-        idx = torch.cat([t_pos[t_perm].reshape(nmb, tmb),
-                         s_pos[s_perm].reshape(nmb, smb)], dim=1).reshape(-1)
+        # one shuffle reused across epochs, teacher-first per minibatch; of
+        # each minibatch this rank takes the members of its envs
+        t_mb = t_pos[t_perm].reshape(nmb, tmb)
+        s_mb = s_pos[s_perm].reshape(nmb, smb)
+        (t_mem, t_cnt), (s_mem, s_cnt) = mesh_lib.local_members(
+            self.mesh, (t_mb, t_mb // T), (s_mb, s_mb // T))
+        idx = torch.cat([x for s in range(nmb)
+                         for x in (t_mem[s, :t_cnt[s]], s_mem[s, :s_cnt[s]])])
+        off = np.cumsum([0] + [t + c for t, c in zip(t_cnt, s_cnt)]).tolist()
         # env-major position n*T + t (rollout_storage_cts.py:175-192) ->
-        # row t*N + n of the (T, N) storage: no transposed copy is made
-        rows = (idx % T) * N + idx // T
+        # row t*N + n of this rank's (T, N) storage: no transposed copy
+        start = self.mesh.env_slice.start if self.mesh else 0
+        rows = (idx % T) * N + idx // T - start
 
         def shuffle(x):
-            flat = x.reshape((T * N,) + x.shape[2:])
-            return flat[rows].reshape((nmb, tmb + smb) + x.shape[2:])
+            return x.reshape((T * N,) + x.shape[2:])[rows]
 
+        # the shuffled pools are gathered once, minibatches are slices
         pools = {k: shuffle(getattr(batch, k)) for k in _MB_FIELDS}
         pools["returns"] = shuffle(returns)
         pools["advantages"] = shuffle(advantages)
@@ -298,24 +338,26 @@ class CTS:
         # ---------------- pass 1: PPO on optimizer 1 ----------------
         lr, opt1, stats1 = self.lr, self.opt1, []
         for slot in slots:
-            mb = {k: v[slot] for k, v in pools.items()}
-            loss, stats, mu, std = self._ppo_loss(mb, tmb)
-            grads = torch.autograd.grad(loss, p1)
-            if adaptive:     # this minibatch's KL sets the step's lr
-                lr, _ = common.adaptive_kl_lr(lr, mu.detach(), std.detach(),
-                                              mb["mu"], mb["sigma"],
-                                              cfg.desired_kl)
-            opt1 = common.adam_step(p1, grads, opt1, lr, cfg.max_grad_norm)
+            mb = {k: v[off[slot]:off[slot + 1]] for k, v in pools.items()}
+            loss, stats, mu, std = self._ppo_loss(mb, t_cnt[slot], tmb, smb)
+            # this minibatch's KL sets the step's lr
+            kl_sum = (common.kl_divergence(mu.detach(), std.detach(),
+                                           mb["mu"], mb["sigma"]).sum()
+                      if adaptive else None)
+            opt1, lr = common.minibatch_step(
+                self.mesh, loss, p1, opt1, lr, cfg.max_grad_norm, kl_sum,
+                tmb + smb, cfg.desired_kl)
             stats1.append(torch.stack(stats).detach())
 
         # ------- pass 2: distillation on optimizer 2 (updated teacher) -------
         opt2, stats2 = self.opt2, []
         for slot in slots:
-            loss, stats = self._distill_loss(pools["history"][slot][tmb:],
-                                             pools["critic_obs"][slot][tmb:])
-            grads = torch.autograd.grad(loss, p2)
-            opt2 = common.adam_step(p2, grads, opt2, self.lr2,
-                                    cfg.max_grad_norm)
+            students = slice(off[slot] + t_cnt[slot], off[slot + 1])
+            loss, stats = self._distill_loss(pools["history"][students],
+                                             pools["critic_obs"][students],
+                                             smb)
+            opt2, _ = common.minibatch_step(self.mesh, loss, p2, opt2,
+                                            self.lr2, cfg.max_grad_norm)
             stats2.append(torch.stack(stats).detach())
         self.opt1, self.opt2, self.lr = opt1, opt2, lr
 

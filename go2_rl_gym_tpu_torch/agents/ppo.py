@@ -4,17 +4,21 @@
 Counterpart of reference rsl_rl/rsl_rl/algorithms/ppo.py:38-187. As in
 agents/cts.py, the train state (the model's parameters, one Adam state and
 the learning rate as a 0-d fp32 tensor) lives in this object; the parameters
-are the model's, updated in place, and `update` reads nothing back to the
-host.
+are the model's, updated in place, and without a mesh `update` reads
+nothing back to the host. Under a data-parallel mesh (`attach_mesh`) the
+minibatches are those of one process over the global batch, as in
+agents/cts.py.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from go2_rl_gym_tpu_torch.agents import common
 from go2_rl_gym_tpu_torch.agents.networks import ActorCritic
+from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.env.config import AlgorithmCfg, PolicyCfg
 
 
@@ -37,17 +41,19 @@ MB_FIELDS = ("obs", "critic_obs", "actions", "values", "log_probs", "mu",
              "sigma")
 
 
-def ppo_loss(cfg: AlgorithmCfg, mu, std, values, mb):
-    """The clipped PPO loss of one minibatch `mb` (MB_FIELDS, returns and
-    advantages; JAX ppo.py:114-126). Returns (loss, (value loss, surrogate,
-    mean entropy))."""
+def ppo_loss(cfg: AlgorithmCfg, mu, std, values, mb, count):
+    """The clipped PPO loss of one minibatch of `count` samples (JAX
+    ppo.py:114-126), of which `mb` (MB_FIELDS, returns and advantages)
+    holds this rank's: each term is their sum over `count`. Returns (loss,
+    (value loss, surrogate, mean entropy))."""
     logp = common.gaussian_log_prob(mu, std, mb["actions"])
-    entropy = common.gaussian_entropy(std).mean()
+    entropy = common.gaussian_entropy(std).sum() / count
     surr = common.surrogate_loss(logp, mb["log_probs"], mb["advantages"],
-                                 cfg.clip_param).mean()
+                                 cfg.clip_param).sum() / count
     vloss = common.clipped_value_loss(values, mb["values"], mb["returns"],
                                       cfg.clip_param,
-                                      cfg.use_clipped_value_loss).mean()
+                                      cfg.use_clipped_value_loss
+                                      ).sum() / count
     loss = surr + cfg.value_loss_coef * vloss - cfg.entropy_coef * entropy
     return loss, (vloss, surr, entropy)
 
@@ -62,7 +68,13 @@ class PPO:
         self.num_obs = num_obs
         self.num_critic_obs = num_critic_obs
         self.num_actions = num_actions
+        self.mesh: Optional[mesh_lib.Mesh] = None
         self.reset_train_state()
+
+    def attach_mesh(self, mesh: mesh_lib.Mesh):
+        """Train as rank `mesh.rank` of a data-parallel run: `update` takes
+        this rank's members of the minibatches of the global batch."""
+        self.mesh = mesh
 
     def make_model(self, num_obs, num_critic_obs, num_actions,
                    policy_cfg: PolicyCfg):
@@ -125,32 +137,49 @@ class PPO:
     # Update
     # ------------------------------------------------------------------
 
+    def _n_global(self, n):
+        return self.mesh.num_envs if self.mesh else n
+
+    def _members(self, units, envs):
+        """This rank's members of the minibatches (rows of `units`, whose
+        global envs are `envs`), concatenated slot by slot, and the slots'
+        offsets into them (mesh.local_members)."""
+        [(members, counts)] = mesh_lib.local_members(self.mesh, (units, envs))
+        rows = torch.cat([members[s, :c] for s, c in enumerate(counts)])
+        return rows, np.cumsum([0] + counts).tolist()
+
     def update(self, batch: Transition, returns, advantages,
                gen: Optional[torch.Generator] = None, perms=None):
         """`num_learning_epochs` x `num_mini_batches` clipped-PPO steps
         (JAX ppo.py:84-147). The (T, N) batch is flattened t-major (row
-        t*N + n) and shuffled once per update, by `perms` (a permutation of
-        range(T * N)) if given, else by torch.randperm from `gen`; the same
-        minibatches are replayed in every epoch. Returns the metrics as 0-d
-        tensors."""
-        T, N = batch.rewards.shape
-        total = T * N
+        t*N + n of the global batch) and shuffled once per update, by
+        `perms` (a permutation of range(T * N)) if given, else by
+        torch.randperm from `gen`; the same minibatches are replayed in
+        every epoch. Returns the metrics as 0-d tensors (under a mesh, this
+        rank's shares)."""
+        T, N = batch.rewards.shape          # N: this rank's envs
+        n_all = self._n_global(N)
+        total = T * n_all
         nmb = self.cfg.num_mini_batches
         mb_size = total // nmb
-        perm = self._perm(total, nmb * mb_size, gen, perms)
+        perm = self._perm(total, nmb * mb_size, gen, perms).reshape(
+            nmb, mb_size)
+        units, off = self._members(perm, perm % n_all)
+        start = self.mesh.env_slice.start if self.mesh else 0
+        rows = units // n_all * N + units % n_all - start
 
         def shuffle(x):
-            flat = x.reshape((total,) + x.shape[2:])
-            return flat[perm].reshape((nmb, mb_size) + x.shape[2:])
+            return x.reshape((T * N,) + x.shape[2:])[rows]
 
         pools = {k: shuffle(getattr(batch, k)) for k in MB_FIELDS}
         pools["returns"] = shuffle(returns)
         pools["advantages"] = shuffle(advantages)
 
-        def forward(mb, slot):
+        def forward(slot):
+            mb = {k: v[off[slot]:off[slot + 1]] for k, v in pools.items()}
             mu, std = self.model.actor_dist(mb["obs"])
-            return mu, std, self.model.value(mb["critic_obs"])
-        return self._epochs(pools, nmb, forward)
+            return mb, mu, std, self.model.value(mb["critic_obs"])
+        return self._epochs(nmb, mb_size, forward)
 
     def _perm(self, n, keep, gen, perms):
         """The update's one shuffle: `perms` if given, else a permutation of
@@ -162,31 +191,29 @@ class PPO:
             perms = torch.randperm(n, generator=gen, device=self.device)
         return torch.as_tensor(perms, device=self.device).long()[:keep]
 
-    def _epochs(self, pools, nmb, forward):
-        """The minibatch loop: epochs x the `nmb` minibatches of `pools`
-        (dicts of MB_FIELDS, returns and advantages, minibatch first), each
-        one clipped-PPO Adam step on all parameters. `forward(mb, slot)`
-        gives (mu, std, values) for minibatch `slot`. The adaptive-KL LR is
-        set from each minibatch's KL before its step. Returns the means of
-        the losses and the final LR."""
+    def _epochs(self, nmb, count, forward):
+        """The minibatch loop: epochs x the `nmb` minibatches of `count`
+        samples each, each one clipped-PPO Adam step on all parameters.
+        `forward(slot)` gives (mb, mu, std, values): minibatch `slot`'s
+        samples of this rank (a dict of MB_FIELDS, returns and advantages)
+        and the model's outputs on them. The adaptive-KL LR is set from each
+        minibatch's KL before its step. Returns the means of the losses and
+        the final LR."""
         cfg = self.cfg
         params = list(self.model.parameters())
         adaptive = cfg.schedule == "adaptive" and cfg.desired_kl is not None
-        A = self.num_actions
         lr, opt, stats = self.lr, self.opt, []
         for _ in range(cfg.num_learning_epochs):
             for slot in range(nmb):
-                mb = {k: v[slot] for k, v in pools.items()}
-                mu, std, values = forward(mb, slot)
-                loss, st = ppo_loss(cfg, mu, std, values, mb)
-                grads = torch.autograd.grad(loss, params)
-                if adaptive:    # the KL over all samples of the minibatch
-                    lr, _ = common.adaptive_kl_lr(
-                        lr, mu.detach().reshape(-1, A),
-                        std.detach().reshape(-1, A), mb["mu"].reshape(-1, A),
-                        mb["sigma"].reshape(-1, A), cfg.desired_kl)
-                opt = common.adam_step(params, grads, opt, lr,
-                                       cfg.max_grad_norm)
+                mb, mu, std, values = forward(slot)
+                loss, st = ppo_loss(cfg, mu, std, values, mb, count)
+                # the KL over all samples of the minibatch
+                kl_sum = (common.kl_divergence(mu.detach(), std.detach(),
+                                               mb["mu"], mb["sigma"]).sum()
+                          if adaptive else None)
+                opt, lr = common.minibatch_step(
+                    self.mesh, loss, params, opt, lr, cfg.max_grad_norm,
+                    kl_sum, count, cfg.desired_kl)
                 stats.append(torch.stack(st).detach())
         self.opt, self.lr = opt, lr
         s = torch.stack(stats).mean(dim=0)

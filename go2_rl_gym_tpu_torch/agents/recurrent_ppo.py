@@ -12,7 +12,8 @@ hidden-state plumbing), as the JAX package designs it:
 * The memory is carried in the runner's RunnerState; the runner snapshots
   the rollout-start memory once per iteration for the replay.
 * Minibatches are env slices (sequences stay whole), shuffled once per
-  update.
+  update; under a data-parallel mesh each rank replays its members of each
+  global slice from its own rollout-start memory.
 
 The train state lives in this object, as in agents/ppo.py.
 """
@@ -113,26 +114,28 @@ class RecurrentPPO(PPO):
         `perms` (a permutation of range(N)) if given, else by torch.randperm
         from `gen`; each minibatch is (T, N // num_mini_batches, ...), and
         its KL for the adaptive LR spans all its T * N // nmb samples.
-        Returns the metrics as 0-d tensors."""
-        T, N = batch.rewards.shape
+        Returns the metrics as 0-d tensors (under a mesh, this rank's
+        shares)."""
+        T, N = batch.rewards.shape          # N: this rank's envs
+        n_all = self._n_global(N)
         nmb = self.cfg.num_mini_batches
-        mb_envs = N // nmb
-        perm = self._perm(N, nmb * mb_envs, gen, perms)
+        mb_envs = n_all // nmb
+        perm = self._perm(n_all, nmb * mb_envs, gen, perms).reshape(
+            nmb, mb_envs)
+        envs, off = self._members(perm, perm)
+        envs = envs - (self.mesh.env_slice.start if self.mesh else 0)
 
-        def env_slice(x):
-            # (T, N, ...) -> (nmb, T, mb_envs, ...)
-            sh = x[:, perm].reshape((T, nmb, mb_envs) + x.shape[2:])
-            return sh.movedim(1, 0)
-
-        pools = {k: env_slice(getattr(batch, k))
+        pools = {k: getattr(batch, k)[:, envs]
                  for k in MB_FIELDS + ("dones",)}
-        pools["returns"] = env_slice(returns)
-        pools["advantages"] = env_slice(advantages)
-        # the rollout-start memory of each minibatch's envs
-        sh_mem = [[x[perm].reshape((nmb, mb_envs) + x.shape[1:]) for x in s]
-                  for s in mem0]
+        pools["returns"] = returns[:, envs]
+        pools["advantages"] = advantages[:, envs]
+        # the rollout-start memory of the members' envs
+        mem = Memory(*[LSTMState(*[x[envs] for x in s]) for s in mem0])
 
-        def forward(mb, slot):
-            mem = Memory(*[LSTMState(*[x[slot] for x in s]) for s in sh_mem])
-            return self._replay(mb["obs"], mb["critic_obs"], mb["dones"], mem)
-        return self._epochs(pools, nmb, forward)
+        def forward(slot):
+            sl = slice(off[slot], off[slot + 1])
+            mb = {k: v[:, sl] for k, v in pools.items()}
+            mem_mb = Memory(*[LSTMState(*[x[sl] for x in s]) for s in mem])
+            return (mb, *self._replay(mb["obs"], mb["critic_obs"],
+                                      mb["dones"], mem_mb))
+        return self._epochs(nmb, T * mb_envs, forward)

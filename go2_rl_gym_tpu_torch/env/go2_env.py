@@ -12,6 +12,11 @@ As in the JAX package, resets are dense masked updates (`torch.where` over
 the whole batch, no data-dependent shapes), and creation-time DR is re-rolled
 at every reset. Every random draw comes from the `torch.Generator` the state
 carries (`EnvState.gen`), on the env's device, in a fixed order per step.
+
+Under a data-parallel mesh (distributed/mesh.py) the env is one rank's shard
+of the global batch: it inits its envs as their rows of the global init,
+all-reduces the command curriculum's two sums, and its step reports metric
+sums that the runner all-reduces once per iteration (`_metric_sums`).
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from go2_rl_gym_tpu_torch.core import maths
 from go2_rl_gym_tpu_torch.device import resolve_device
+from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.env import rewards as reward_lib
 from go2_rl_gym_tpu_torch.env.config import Go2Cfg
 from go2_rl_gym_tpu_torch.sim import engine, tengine
@@ -95,16 +101,20 @@ class Go2Env:
     """Builds static tables from cfg and exposes init/step functions.
 
     `device` defaults to the card; without one it raises (pass
-    device="cpu" to run on the CPU)."""
+    device="cpu" to run on the CPU). With a `mesh` the env is that rank's
+    shard of the cfg.env.num_envs envs (`attach_mesh`)."""
 
     def __init__(self, cfg: Go2Cfg, model: Optional[RobotModel] = None,
                  num_steps_per_env: int = 24, terrain_seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[mesh_lib.Mesh] = None):
         self.device = resolve_device(device)
         dev = self.device
         self.cfg = cfg
         self.model = model or go2_model()
-        self.num_envs = cfg.env.num_envs
+        # the batch this env steps; under a mesh, its shard of the global one
+        self.num_envs_global = self.num_envs = cfg.env.num_envs
+        self.env_ids = np.arange(self.num_envs)     # global env indices
+        self.mesh = None
         self.num_obs = cfg.env.num_observations
         self.num_privileged_obs = cfg.env.num_privileged_obs
         self.num_actions = cfg.env.num_actions
@@ -150,7 +160,7 @@ class Go2Env:
             origins = np.zeros((self.num_envs, 3), np.float32)
             origins[:, 0] = spacing * xx.flatten()[: self.num_envs]
             origins[:, 1] = spacing * yy.flatten()[: self.num_envs]
-            self.flat_origins = f32(origins)
+            self.flat_origins = self._flat_origins_global = f32(origins)
 
         # ---- joint defaults / gains (legged_robot.py:843-859) ----
         angles = np.zeros(12, np.float32)
@@ -252,6 +262,27 @@ class Go2Env:
         self.push_interval = int(np.ceil(cfg.domain_rand.push_interval_s / self.dt))
         self.physics_step = tengine.make_physics_step(
             self.model, self.sim_params, self.terrain, cfg.control.decimation)
+        if mesh is not None:
+            self.attach_mesh(mesh)
+
+    def attach_mesh(self, mesh: mesh_lib.Mesh):
+        """Make this env rank `mesh.rank`'s shard of the global batch of
+        cfg.env.num_envs envs: it steps the envs of global index
+        `mesh.env_ids()`, whose init is their rows of the global init (the
+        terrain levels and types and the plane's grid origins are functions
+        of the global index), and its curriculum and metrics are global.
+        Every rank builds the same terrain from the same terrain seed."""
+        if mesh.num_envs != self.num_envs_global:
+            raise ValueError(f"the mesh covers {mesh.num_envs} envs, the "
+                             f"config {self.num_envs_global}")
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
+                             f"env on {self.device}")
+        self.mesh = mesh
+        self.num_envs = mesh.local_envs
+        self.env_ids = mesh.env_ids()
+        if self.grid is None:
+            self.flat_origins = self._flat_origins_global[mesh.env_slice]
 
     # ------------------------------------------------------------------
     # Curriculum helpers (pure functions of the iteration counter)
@@ -643,10 +674,12 @@ class Go2Env:
             max_init = (self.cfg.terrain.max_init_terrain_level
                         if self.cfg.terrain.curriculum
                         else self.cfg.terrain.num_rows - 1)
-            levels = torch.as_tensor(np.arange(N) % (max_init + 1),
+            # functions of the global env index
+            ids, n_all = self.env_ids, self.num_envs_global
+            levels = torch.as_tensor(ids % (max_init + 1),
                                      dtype=torch.int32, device=dev)
             types = torch.as_tensor(
-                (np.arange(N) / (N / self.cfg.terrain.num_cols)).astype(np.int64),
+                (ids / (n_all / self.cfg.terrain.num_cols)).astype(np.int64),
                 dtype=torch.int32, device=dev)
             terrain_ids = (self.cols2id[types.long()]
                            if self.cols2id is not None
@@ -830,8 +863,10 @@ class Go2Env:
                                last_contacts2=last_contacts2,
                                episode_sums=episode_sums)
 
-        # ---- metrics (before sums are cleared) ----
-        metrics = self._metrics(state, reset_buf)
+        # ---- metrics (before sums are cleared); under a mesh the shard's
+        # sums, which the runner all-reduces ----
+        metrics = (self._metrics(state, reset_buf) if self.mesh is None
+                   else self._metric_sums(state, reset_buf))
 
         # action_smoothness history advances after rewards
         # (legged_robot.py:1373-1379)
@@ -981,6 +1016,15 @@ class Go2Env:
     def _metrics(self, state, done):
         """Episode metrics: masked sums + counts (runner divides), matching
         reference extras['episode'] (legged_robot.py:229-245)."""
+        return self.finish_metrics(self._metric_sums(state, done))
+
+    def _metric_sums(self, state, done):
+        """The metrics as sums over this env's batch, so that the sums of
+        the ranks' values are the global batch's: `done_count`, `rew_*`,
+        `terrain_level_all` (the level sum over the global env count), and
+        per terrain type a (level sum, env count) pair that
+        `finish_metrics` divides; `max_command_x` is the same on every
+        rank."""
         m = {}
         donef = done.to(torch.float32)
         m["done_count"] = torch.sum(donef)
@@ -988,17 +1032,28 @@ class Go2Env:
             m[f"rew_{name}"] = torch.sum(sums * donef) / self.max_episode_length_s
         if self.grid is not None:
             levels = state.terrain_levels
-            m["terrain_level_all"] = torch.mean(levels.to(torch.float32))
+            m["terrain_level_all"] = (torch.sum(levels.to(torch.float32))
+                                      / self.num_envs_global)
             for tname, cols in self.terrain_type_names.items():
                 in_type = torch.isin(state.terrain_types, cols)
-                cnt = torch.clamp(torch.sum(in_type), min=1)
-                m[f"terrain_level_{tname}"] = (
-                    torch.sum(torch.where(in_type, levels, 0)) / cnt)
+                m[f"terrain_level_{tname}"] = torch.stack([
+                    torch.sum(torch.where(in_type, levels, 0)),
+                    torch.sum(in_type)]).to(torch.float32)
         else:
             m["terrain_level_all"] = torch.zeros((), device=self.device)
         if self.cfg.commands.curriculum:
             m["max_command_x"] = state.cmd_range_x[1]
         return m
+
+    @staticmethod
+    def finish_metrics(sums):
+        """`_metric_sums`' per-type (level sum, env count) pairs, the last
+        dim of their values, become mean levels (over at least one env);
+        the other metrics are kept."""
+        return {k: (v[..., 0] / torch.clamp(v[..., 1], min=1.0)
+                    if k.startswith("terrain_level_") and k != "terrain_level_all"
+                    else v)
+                for k, v in sums.items()}
 
     def _reset_envs(self, state: EnvState, done, gen):
         """Masked env reset (legged_robot.py:180-245)."""
@@ -1007,13 +1062,17 @@ class Go2Env:
         # performance-based command curriculum (legged_robot.py:728-737)
         cmd_range_x = state.cmd_range_x
         if cfg.commands.curriculum:
+            # over the done envs of the global batch, so that cmd_range_x
+            # stays the same on every rank
             donef = done.to(torch.float32)
-            cnt = torch.clamp(torch.sum(donef), min=1.0)
-            mean_track = (torch.sum(state.episode_sums["tracking_lin_vel"] * donef)
-                          / cnt / self.max_episode_length)
+            track_sum, done_sum = mesh_lib.all_reduce(self.mesh, [torch.stack([
+                torch.sum(state.episode_sums["tracking_lin_vel"] * donef),
+                torch.sum(donef)])])[0]
+            cnt = torch.clamp(done_sum, min=1.0)
+            mean_track = track_sum / cnt / self.max_episode_length
             expand = (mean_track >
                       0.8 * self.reward_scales.get("tracking_lin_vel", 1.0))
-            expand = expand & (torch.sum(donef) > 0)
+            expand = expand & (done_sum > 0)
             new_lo = torch.clamp(cmd_range_x[0] - 0.5,
                                  -cfg.commands.max_curriculum, 0.0)
             new_hi = torch.clamp(cmd_range_x[1] + 0.5,

@@ -8,9 +8,20 @@ experiment, and runs `learn`. Every registered task trains (PPO `go2`,
 recurrent PPO `go2_lstm`, the six CTS tasks, the three ablation variants;
 `utils.registry.task_names()`).
 
+Data-parallel over W ranks, one process per card (NCCL; gloo with
+`--device cpu`), each stepping num_envs / W of the envs (scripts/train.py:
+43-47, 85-91 of the JAX package): launch the same command under
+torch.distributed.run. Rank r runs on cuda:<LOCAL_RANK>; only rank 0 logs,
+prints and writes checkpoints. The script refuses, rather than runs on fewer
+ranks or on the CPU, when W does not divide num_envs, `--num_devices`
+differs from W, or a rank has no card.
+
 Usage:
     python -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \
         --num_envs 4096 --max_iterations 150000 [--resume] [--device cuda]
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \
+        --num_envs 4096 [--num_devices 4]
 """
 from __future__ import annotations
 
@@ -46,6 +57,12 @@ def get_args(argv=None):
                    help="write a torch.profiler trace of iterations 10-12")
     p.add_argument("--eval_interval", type=int, default=0,
                    help="async sim2sim eval every N iterations (not ported)")
+    p.add_argument("--multihost", action="store_true",
+                   help="initialise torch.distributed from the launcher's "
+                        "environment (implied under torch.distributed.run)")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="shard the envs over this many ranks; must equal "
+                        "the launcher's world size")
     return p.parse_args(argv)
 
 
@@ -61,19 +78,35 @@ def main(argv=None):
 
     env_cfg, train_cfg = registry.get_cfgs(args.task)
     update_cfg_from_args(env_cfg, train_cfg, args)
+    device, mesh = args.device, None
+    if args.multihost or args.num_devices or "WORLD_SIZE" in os.environ:
+        # before any CUDA work: make_env uploads the terrain
+        from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
+        world = int(os.environ.get("WORLD_SIZE", 0))
+        if args.num_devices and args.num_devices != world:
+            raise RuntimeError(
+                f"--num_devices {args.num_devices}, but the launcher started "
+                f"{world or 'no'} ranks: launch with python -m "
+                f"torch.distributed.run --nproc_per_node {args.num_devices}")
+        device = mesh_lib.initialize_multihost(device=args.device)
+        mesh = mesh_lib.make_mesh(env_cfg.env.num_envs, device)
+        print(f"data-parallel over {mesh.world} ranks: rank {mesh.rank} on "
+              f"{device}, envs [{mesh.env_slice.start}, "
+              f"{mesh.env_slice.stop}) of {mesh.num_envs}", flush=True)
     env = registry.make_env(
         args.task, env_cfg,
         num_steps_per_env=train_cfg.runner.num_steps_per_env,
-        device=args.device)
+        device=device, mesh=mesh)
     runner = registry.make_runner(args.task, env, train_cfg,
                                   log_root=args.log_root,
-                                  run_name=args.run_name, device=args.device)
+                                  run_name=args.run_name, device=device)
     rs = runner.init_runner_state(train_cfg.seed, init_at_random_ep_len=True)
     if args.resume:
         path = get_load_path(os.path.join(args.log_root,
                                           train_cfg.runner.experiment_name),
                              args.load_run, args.checkpoint)
-        print(f"resuming from {path}")
+        if runner.is_main:
+            print(f"resuming from {path}")
         rs = runner.load(rs, path)
 
     iters = train_cfg.runner.max_iterations
@@ -92,4 +125,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from go2_rl_gym_tpu_torch.distributed.mesh import shutdown
+    try:
+        main()
+    finally:
+        shutdown()

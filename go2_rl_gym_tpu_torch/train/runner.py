@@ -15,6 +15,12 @@ Where the state lives: everything the env and the rollout carry is in
 the adaptive learning rate) lives in the runner's algorithm object
 (`runner.alg`), whose parameters are updated in place. `save` writes both,
 so `load` resumes exactly.
+
+Data-parallel training (`attach_mesh`, distributed/mesh.py): each rank runs
+this runner on its shard of the global env batch; the parameters start from
+rank 0's and stay equal on every rank, an iteration's metrics are
+all-reduced once, and a checkpoint holds the global batch in global env
+order plus every rank's generator states.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from go2_rl_gym_tpu_torch.agents import ppo as ppo_lib
 from go2_rl_gym_tpu_torch.agents import recurrent_ppo
 from go2_rl_gym_tpu_torch.agents.networks import init_params
 from go2_rl_gym_tpu_torch.device import resolve_device
+from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.env.config import TrainCfg
 from go2_rl_gym_tpu_torch.env.go2_env import EnvState, Go2Env
 from go2_rl_gym_tpu_torch.train.metrics import MetricsWriter
@@ -44,12 +51,14 @@ class RunnerState(NamedTuple):
     obs: torch.Tensor
     priv_obs: torch.Tensor
     history: torch.Tensor            # (N, L, num_obs); L = 1 if not CTS
-    gen: torch.Generator             # action noise and the update's shuffle
+    gen: torch.Generator             # action noise (this rank's)
     # episode bookkeeping (reference on_policy_runner.py:142-143)
     cur_reward_sum: torch.Tensor     # (N,)
     cur_episode_length: torch.Tensor  # (N,)
     # recurrent PPO's RNN memory (recurrent_ppo.Memory); () for the others
     memory: Any = ()
+    # the update's shuffle: the same state on every rank of a mesh
+    perm_gen: Optional[torch.Generator] = None
 
 
 class Rollout(NamedTuple):
@@ -62,10 +71,21 @@ class Rollout(NamedTuple):
     metrics: Dict[str, torch.Tensor]  # env metrics, (T,) per name
 
 
+# metrics that are the same on every rank, left out of an iteration's sum
+REPLICATED_METRICS = frozenset({"learning_rate", "mean_noise_std",
+                                "max_command_x"})
+
+
 def _split_seed(seed: int, n: int):
     g = torch.Generator()
     g.manual_seed(seed)
     return [int(s) for s in torch.randint(0, 2 ** 62, (n,), generator=g)]
+
+
+def _rank_seed(seed: int, rank: int) -> int:
+    """The seed of rank `rank`'s generator of a stream seeded `seed`; rank 0
+    keeps `seed`, so that one rank draws as one process does."""
+    return (seed + rank * 0x9E3779B97F4A7C15) % 2 ** 63
 
 
 def _pack(tree):
@@ -87,6 +107,8 @@ def _unpack(template, data, device):
         g = torch.Generator(device=template.device)
         g.set_state(data["generator_state"])
         return g
+    if template is None:
+        return None
     if isinstance(template, tuple) and hasattr(template, "_fields"):
         def field(k, v):
             # a field may be missing only where the template holds an empty
@@ -111,7 +133,9 @@ class OnPolicyRunner:
     train_cfg.runner.algorithm_class_name).
 
     `device` defaults to the card and must be the env's device. With a
-    `log_dir`, `learn` writes metrics and checkpoints there."""
+    `log_dir`, `learn` writes metrics and checkpoints there (rank 0's only,
+    under a mesh). An env that is a rank's shard (`Go2Env(mesh=...)`) makes
+    the runner data-parallel over its mesh (`attach_mesh`)."""
 
     def __init__(self, env: Go2Env, train_cfg: TrainCfg,
                  log_dir: Optional[str] = None, device="cuda",
@@ -135,8 +159,8 @@ class OnPolicyRunner:
         if self.is_cts:
             self.alg = cts_lib.CTS(
                 alg_name, env.num_obs, num_critic_obs, env.num_actions,
-                env.num_envs, train_cfg.history_length, train_cfg.policy,
-                train_cfg.algorithm, device=self.device)
+                env.num_envs_global, train_cfg.history_length,
+                train_cfg.policy, train_cfg.algorithm, device=self.device)
         else:
             cls = (recurrent_ppo.RecurrentPPO if self.is_recurrent
                    else ppo_lib.PPO)
@@ -146,36 +170,63 @@ class OnPolicyRunner:
         self.current_iteration = 0
         self.tot_timesteps = 0
         self.tot_time = 0.0
-        self.writer = MetricsWriter(log_dir) if log_dir else None
-        if log_dir:
+        self.mesh: Optional[mesh_lib.Mesh] = None
+        self.is_main = env.mesh is None or env.mesh.rank == 0
+        self.writer = MetricsWriter(log_dir) if log_dir and self.is_main \
+            else None
+        if log_dir and self.is_main:
             os.makedirs(log_dir, exist_ok=True)
             with open(os.path.join(log_dir, "config.yaml"), "w") as f:
                 yaml.safe_dump({
                     "train_cfg": dataclasses.asdict(train_cfg),
                     "env_cfg": dataclasses.asdict(env.cfg),
                 }, f)
+        if env.mesh is not None:
+            self.attach_mesh(env.mesh)
 
-    def attach_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "data-parallel training is not ported to go2_rl_gym_tpu_torch yet")
+    def attach_mesh(self, mesh: mesh_lib.Mesh):
+        """Switch to data-parallel execution as rank `mesh.rank` (JAX
+        runner.py:101-119): the env becomes this rank's shard of the global
+        batch, the algorithm takes this rank's members of every global
+        minibatch, and `train_step` all-reduces the gradients and the
+        metrics. Every rank calls it with its own mesh of one process group,
+        before `init_runner_state`, which then builds this rank's shard
+        (`mesh_lib.shard_runner_state` cuts a global RunnerState to it)."""
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
+                             f"runner on {self.device}")
+        if self.env.mesh is not mesh:
+            self.env.attach_mesh(mesh)
+        self.alg.attach_mesh(mesh)
+        self.mesh = mesh
+        self.is_main = mesh.rank == 0
 
     def init_runner_state(self, seed: int = 0,
                           init_at_random_ep_len=False) -> RunnerState:
-        """Seeded env state, policy weights (with a fresh train state) and
-        noise generator, then the first observation via a zero-action step
-        (reference BaseTask.reset, base_task.py:72-77)."""
+        """Seeded env state, policy weights (with a fresh train state), noise
+        and shuffle generators, then the first observation via a
+        zero-action step (reference BaseTask.reset, base_task.py:72-77).
+
+        Under a mesh: the weights are rank 0's (broadcast), the env and the
+        act noise draw from generators seeded by (seed, rank), and the
+        shuffle generator is seeded alike on every rank."""
         env = self.env
         N = env.num_envs
-        s_env, s_alg, s_run = _split_seed(seed, 3)
+        rank = self.mesh.rank if self.mesh else 0
+        s_env, s_alg, s_run, s_perm = _split_seed(seed, 4)
         alg_gen = torch.Generator(device=self.device)
         alg_gen.manual_seed(s_alg)
         init_params(self.alg.model, alg_gen)
+        with torch.no_grad():
+            mesh_lib.broadcast_(self.mesh, list(self.alg.model.parameters()))
         self.alg.reset_train_state()
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(s_run)
+        gen.manual_seed(_rank_seed(s_run, rank))
+        perm_gen = torch.Generator(device=self.device)
+        perm_gen.manual_seed(s_perm)
 
         with torch.no_grad():
-            env_state = env.init_state(s_env)
+            env_state = env.init_state(_rank_seed(s_env, rank))
             if init_at_random_ep_len:
                 # reference on_policy_runner.py:127-128
                 rand_len = torch.randint(
@@ -192,7 +243,8 @@ class OnPolicyRunner:
             history=history, gen=gen,
             cur_reward_sum=torch.zeros(N, device=self.device),
             cur_episode_length=torch.zeros(N, device=self.device),
-            memory=self.alg.zero_memory(N) if self.is_recurrent else ())
+            memory=self.alg.zero_memory(N) if self.is_recurrent else (),
+            perm_gen=perm_gen)
 
     # ------------------------------------------------------------------
 
@@ -292,15 +344,17 @@ class OnPolicyRunner:
                    mark: Optional[Callable[[str], None]] = None):
         """One train iteration: rollout, GAE, update (JAX runner.py:182-295).
 
-        `noise` is passed to `rollout` and `perms` to the algorithm's
-        `update` (both drawn from rs.gen when not given); recurrent PPO's
-        update replays from the rollout-start memory. `mark`, if given, is
-        called with "rollout", "gae" and "update" as each phase has been
-        issued, for timing (it may synchronize the device). Returns
-        (RunnerState, metrics as tensors on the device): env metrics,
-        `rew_*` and `done_count` summed over the rollout and the others
-        averaged, `ep_stats` summed, the update's losses and learning rate,
-        and `mean_noise_std` where the model has a `std` parameter."""
+        `noise` is passed to `rollout` (drawn from rs.gen when not given)
+        and `perms` to the algorithm's `update` (drawn from rs.perm_gen when
+        not given); recurrent PPO's update replays from the rollout-start
+        memory. `mark`, if given, is called with "rollout", "gae" and
+        "update" as each phase has been issued, for timing (it may
+        synchronize the device). Returns (RunnerState, metrics as tensors on
+        the device): env metrics, `rew_*` and `done_count` summed over the
+        rollout and the others averaged, `ep_stats` summed, the update's
+        losses and learning rate, and `mean_noise_std` where the model has a
+        `std` parameter. Under a mesh the metrics are the global batch's,
+        all-reduced once."""
         mark = mark or (lambda phase: None)
         mem0 = rs.memory            # rollout-start RNN memory for the replay
         rs, ro = self.rollout(rs, noise)
@@ -309,27 +363,43 @@ class OnPolicyRunner:
         cfg = self.cfg.algorithm
         returns, advantages = common.compute_gae(
             traj.rewards, traj.values, traj.dones, ro.last_values, cfg.gamma,
-            cfg.lam)
+            cfg.lam, self.mesh)
         mark("gae")
         if self.is_recurrent:
             loss_metrics = self.alg.update(traj, returns, advantages, mem0,
-                                           gen=rs.gen, perms=perms)
+                                           gen=rs.perm_gen, perms=perms)
         else:
             loss_metrics = self.alg.update(traj, returns, advantages,
-                                           gen=rs.gen, perms=perms)
+                                           gen=rs.perm_gen, perms=perms)
         mark("update")
 
         agg = {}
         for name, vals in ro.metrics.items():
             if name.startswith("rew_") or name == "done_count":
-                agg[name] = torch.sum(vals)
+                agg[name] = torch.sum(vals, dim=0)
+            elif self.mesh is not None and vals.dim() == 2:
+                agg[name] = vals     # per-step (sum, count) pairs
             else:
-                agg[name] = torch.mean(vals)
+                agg[name] = torch.mean(vals, dim=0)
         agg["ep_stats"] = ro.ep_stats
         agg.update(loss_metrics)
         if hasattr(self.alg.model, "std"):
             agg["mean_noise_std"] = torch.mean(self.alg.model.std.detach())
+        if self.mesh is not None:
+            agg = self._global_metrics(agg)
         return rs, agg
+
+    def _global_metrics(self, agg):
+        """The ranks' metrics summed in one all_reduce (the replicated ones
+        kept); the env's per-type (sum, count) pairs are divided per step,
+        then averaged over the rollout."""
+        names = [k for k in agg if k not in REPLICATED_METRICS]
+        reduced = mesh_lib.all_reduce(self.mesh, [agg[k] for k in names])
+        agg = {**agg, **dict(zip(names, reduced))}
+        pairs = {k: v for k, v in agg.items() if v.dim() == 2}
+        agg.update({k: torch.mean(v, dim=0)
+                    for k, v in self.env.finish_metrics(pairs).items()})
+        return agg
 
     # ------------------------------------------------------------------
 
@@ -362,7 +432,7 @@ class OnPolicyRunner:
                 offs = np.cumsum([0] + sizes)
             row = torch.cat([m[k].to(torch.float32).reshape(-1)
                              for k in keys]).cpu().numpy()
-            self.tot_timesteps += self.num_steps * self.env.num_envs
+            self.tot_timesteps += self.num_steps * self.env.num_envs_global
             self.current_iteration = it + 1
             now = time.time()
             dt_iter = now - t_window
@@ -381,8 +451,8 @@ class OnPolicyRunner:
             if self.writer and (it % log_every == 0 or it == tot_iter - 1):
                 self._log(it, dict(pmetrics), dt_iter, rewbuffer, lenbuffer,
                           srewbuffer, slenbuffer)
-            if it % print_every == 0:
-                fps = int(self.num_steps * self.env.num_envs / dt_iter)
+            if self.is_main and it % print_every == 0:
+                fps = int(self.num_steps * self.env.num_envs_global / dt_iter)
                 mr = np.mean(rewbuffer) if rewbuffer else float("nan")
                 print(
                     f"it {it}/{tot_iter} | {fps} steps/s | "
@@ -401,7 +471,7 @@ class OnPolicyRunner:
 
     def _log(self, it, metrics, dt_iter, rewbuffer, lenbuffer, srew, slen):
         w = self.writer
-        fps = int(self.num_steps * self.env.num_envs / dt_iter)
+        fps = int(self.num_steps * self.env.num_envs_global / dt_iter)
         done_count = float(metrics.pop("done_count", 0.0))
         for name, val in metrics.items():
             if name.startswith("rew_"):
@@ -441,26 +511,51 @@ class OnPolicyRunner:
     def save(self, rs: RunnerState, path: str):
         """Checkpoint everything (torch.save): the train state (parameters,
         Adam states, the learning rate), the runner state (env state with its
-        generator, obs, history, episode sums, the RNN memory, the noise
-        generator) and the iteration, so that `load` resumes exactly."""
-        torch.save({"iteration": self.current_iteration,
-                    "train_state": self.alg.train_state_dict(),
-                    "runner_state": _pack(rs)}, path)
+        generator, obs, history, episode sums, the RNN memory, the noise and
+        shuffle generators) and the iteration, so that `load` resumes
+        exactly.
+
+        Under a mesh every rank must call it: the env state is gathered in
+        global env order, so that the file holds what one process's
+        checkpoint of the N envs holds (with rank 0's generators), plus every
+        rank's generator states under "rank_generators"; rank 0 writes it,
+        and every rank returns once the file is complete."""
+        ck = {"iteration": self.current_iteration,
+              "train_state": self.alg.train_state_dict()}
+        if self.mesh is not None:
+            ck["world"] = self.mesh.world
+            ck["rank_generators"] = mesh_lib.gather_generator_states(
+                self.mesh, rs)
+            rs = mesh_lib.gather_runner_state(self.mesh, rs)
+        if self.is_main:
+            torch.save(dict(ck, runner_state=_pack(rs)), path)
+        mesh_lib.barrier(self.mesh)
 
     def load(self, rs: RunnerState, path: str) -> RunnerState:
         """Restore a checkpoint of `save` into this runner's train state;
         returns the saved RunnerState, shaped like `rs` (this runner's, of
-        the same env count)."""
+        the same global env count). A checkpoint of a run over W ranks
+        resumes over W ranks, each with its own generators."""
         # on the CPU first: a generator's state must be a CPU tensor, and
         # every other tensor is moved to the device as it is restored
         ck = torch.load(path, map_location="cpu", weights_only=True)
         n = ck["runner_state"]["obs"].shape[0]
-        if n != self.env.num_envs:
+        if n != self.env.num_envs_global:
             raise ValueError(f"checkpoint has {n} envs, the runner "
-                             f"{self.env.num_envs}; use load_params")
+                             f"{self.env.num_envs_global}; use load_params")
+        world = self.mesh.world if self.mesh else 1
+        if ck.get("world", 1) != world:
+            raise ValueError(f"checkpoint of a run over {ck.get('world', 1)} "
+                             f"ranks, this one has {world}; use load_params")
         self.alg.load_train_state_dict(ck["train_state"])
         self.current_iteration = int(ck["iteration"])
-        return _unpack(rs, ck["runner_state"], self.device)
+        if self.mesh is None:
+            return _unpack(rs, ck["runner_state"], self.device)
+        # the global state unpacked on the CPU, then this rank's slice
+        out = mesh_lib.shard_runner_state(
+            self.mesh, _unpack(rs, ck["runner_state"], "cpu"))
+        mesh_lib.set_generator_states(self.mesh, out, ck["rank_generators"])
+        return out
 
     def load_params(self, path: str) -> Dict[str, torch.Tensor]:
         """Restore ONLY the model parameters of a checkpoint, whatever its

@@ -11,6 +11,7 @@ import os
 from datetime import datetime
 from typing import Callable, Dict, Optional, Tuple
 
+from go2_rl_gym_tpu_torch.distributed.mesh import Mesh
 from go2_rl_gym_tpu_torch.env import config as cfgs
 from go2_rl_gym_tpu_torch.env import config_variants as _variants
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
@@ -36,13 +37,16 @@ def get_cfgs(name: str):
 
 def make_env(name: str, env_cfg=None, num_envs: Optional[int] = None,
              num_steps_per_env: int = 24, terrain_seed: int = 0,
-             device="cuda") -> Go2Env:
+             device="cuda", mesh: Optional[Mesh] = None) -> Go2Env:
+    """The task's env of `num_envs` envs (the config's by default); with a
+    `mesh`, this rank's shard of them (a runner made on it trains
+    data-parallel)."""
     if env_cfg is None:
         env_cfg, _ = get_cfgs(name)
     if num_envs is not None:
         env_cfg.env.num_envs = num_envs
     return Go2Env(env_cfg, num_steps_per_env=num_steps_per_env,
-                  terrain_seed=terrain_seed, device=device)
+                  terrain_seed=terrain_seed, device=device, mesh=mesh)
 
 
 def make_runner(name: str, env: Go2Env, train_cfg=None,
