@@ -49,12 +49,36 @@ Phases (any failure exits non-zero and prints no result line):
    and bitwise equal across the ranks. The iteration is cut to 6 policy
    steps: from step 9 on, robots spawned on the rough terrain start to fall
    and reset, and a reset draws from each rank's own generator.
-   For 5 to 9 every launch count is set to 0 just before each run and
+10. Main path, export + eval (export/, train/eval_hook.py, deploy/): the
+   go2_moe_cts task through the registry at 4096 envs, `runner.learn(rs,
+   2)` with a log_dir under build/ and eval_interval 1: 24 patch launches
+   per iteration, jit_models/policy_jit_{0,1,2}.pt (the JAX cadence) and
+   one evaluator process per export (CUDA_VISIBLE_DEVICES="", its stderr
+   kept under build/ for this phase). Then, from the trained weights: the
+   TorchScript export on the CPU and, loaded onto the card, on the card,
+   fed the first 7 envs' last obs as a sequence, against the card model's
+   student `mu` (deploy.mujoco_eval.ModelPolicy) within 2e-5 + 1e-4 rel
+   (TF32 off), with reset() giving the first action back; the ONNX export
+   through the port's OnnxPolicy against build_torch_policy_stacked within
+   1e-5; build/native/libgo2_infer.so built with g++ (no skip), the .g2p
+   and the ONNX files through NativePolicy against the TorchScript within
+   1e-5 + 1e-4 rel; the pkl loading back equal to the parameters. Where
+   `import mujoco` works, every evaluator must have written its
+   results_<it>.yaml with tracking, safety, quality and overall in [0, 1];
+   where it does not, the phase says so (the scoring is held on the CPU by
+   tests/test_torch_eval_hook.py) and prints each evaluator's exit code and
+   last stderr line. Prints the export ms of each kind, learn's env-steps/s
+   of the two iterations and the evaluators' wall times.
+11. Main path, play checkpoint: scripts.play's checkpoint mode on the
+   model_2.pt of phase 10 at 16 envs with the play overrides (5 x 5
+   terrain): policy_jit.pt, policy.onnx and policy.pkl written, 24 finite
+   steps, 25 patch launches (24 + the init step).
+   For 5 to 11 every launch count is set to 0 just before each run and
    read just after (in the ranks' processes for 9); each rough-terrain
    policy step must launch the patch kernel once (24 per train iteration)
    and the plane none, and obs and rewards must be finite. Every spawned
    process has a timeout and is killed with its process group on failure.
-10. Print one JSON line listing every kernel, then the device line.
+12. Print one JSON line listing every kernel, then the device line.
 """
 from __future__ import annotations
 
@@ -64,6 +88,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -74,6 +99,9 @@ H100_BYTES_PER_S = 3.35e12      # published HBM3 rate, H100 SXM
 DDP_DIR = os.path.join(ROOT, "build", "ddp")
 DDP_PARITY_STEPS = 6
 RANK_TIMEOUT_S = 400            # for any spawned process
+EXPORT_DIR = os.path.join(ROOT, "build", "export_eval")
+EVAL_TIMEOUT_S = 240            # for the evaluator processes of the hook
+EXPORT_SEQ = 7                  # obs fed through the exported policies
 
 
 def fail(msg):
@@ -494,6 +522,274 @@ def phase_train_ddp():
                                    for r in res)}
 
 
+def smoke_evaluator(log_dir):
+    """The eval hook's AsyncEvaluator on the flat scene for 1 s, with each
+    evaluator process in its own process group, its stderr in a file under
+    `log_dir`, its start and end times recorded, and a wait of at most
+    EVAL_TIMEOUT_S after which its group is killed."""
+    from go2_rl_gym_tpu_torch.train.eval_hook import AsyncEvaluator
+
+    class SmokeEvaluator(AsyncEvaluator):
+        def __init__(self):
+            super().__init__(log_dir, scenes=("flat",), duration_s=1.0)
+            self.submitted, self.spawned = [], []
+
+        def submit(self, policy_path, iteration):
+            self.submitted.append(iteration)
+            super().submit(policy_path, iteration)
+
+        def _spawn(self, cmd, env):
+            err = os.path.join(log_dir, f"evaluator_{len(self.spawned)}.err")
+            with open(err, "w") as f:
+                proc = subprocess.Popen(cmd, stdout=subprocess.DEVNULL,
+                                        stderr=f, env=env,
+                                        start_new_session=True)
+            rec = dict(cmd=cmd, env=env, stderr=err, proc=proc,
+                       start=time.perf_counter(), end=None)
+
+            def reap():
+                proc.wait()
+                rec["end"] = time.perf_counter()
+            threading.Thread(target=reap, daemon=True).start()
+            self.spawned.append(rec)
+            return proc
+
+        def wait_all(self, timeout=None):
+            deadline = time.monotonic() + EVAL_TIMEOUT_S
+            for _, proc, _ in self._jobs:
+                try:
+                    proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+            return self.poll()
+
+        def kill_all(self):
+            for rec in self.spawned:
+                if rec["proc"].poll() is None:
+                    os.killpg(rec["proc"].pid, signal.SIGKILL)
+                    rec["proc"].wait()
+
+    return SmokeEvaluator()
+
+
+def within(got, want, atol, rtol=0.0):
+    """max |got - want| and whether every entry is within atol + rtol|want|."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    return float(err.max()), bool((err <= atol + rtol * np.abs(want)).all())
+
+
+def stacked_by_term(frames, term_dims=(3, 3, 3, 12, 12, 12)):
+    """(L, 45) frames -> the ONNX interface's (1, L*45) input, stacked by
+    term (reference exporter.py:238-262)."""
+    import numpy as np
+    off = np.cumsum((0,) + tuple(term_dims))
+    return np.concatenate([frames[None, :, off[t]:off[t + 1]].reshape(1, -1)
+                           for t in range(len(term_dims))], axis=1)
+
+
+def phase_export_eval(shared, num_envs=NUM_ENVS, device="cuda"):
+    """Train with the eval hook, then check every export of the trained
+    weights (see the module docstring). Leaves the run's log_root and
+    directory in `shared` for phase play checkpoint. Returns the launch
+    counts of the two iterations."""
+    import numpy as np
+    import torch
+    import yaml
+    from go2_rl_gym_tpu_torch.deploy.mujoco_eval import ModelPolicy
+    from go2_rl_gym_tpu_torch.export import exporter, native, onnx_native
+    from go2_rl_gym_tpu_torch.export.importer import tree_from_named
+    from go2_rl_gym_tpu_torch.utils import registry
+
+    task, iters = "go2_moe_cts", 2
+    log_root = os.path.join(EXPORT_DIR, "logs")
+    env_cfg, tc = registry.get_cfgs(task)
+    env = registry.make_env(task, env_cfg, num_envs=num_envs,
+                            num_steps_per_env=tc.runner.num_steps_per_env,
+                            device=device)
+    runner = registry.make_runner(task, env, tc, log_root=log_root,
+                                  device=device, eval_interval=1)
+    ev = runner.evaluator = smoke_evaluator(runner.log_dir)
+    rs = runner.init_runner_state(tc.seed, init_at_random_ep_len=True)
+    per_iter = []
+    train_step = runner.train_step
+
+    def counted(*args, **kwargs):
+        out = train_step(*args, **kwargs)
+        per_iter.append(launch_counts()["extract_patches"])
+        return out
+    runner.train_step = counted
+    try:
+        reset_launch_counts()
+        t = time.perf_counter()
+        rs = runner.learn(rs, iters, log_every=1, print_every=1)
+        learn_s = time.perf_counter() - t
+        counts = launch_counts()
+    finally:
+        ev.kill_all()
+    shared.update(log_root=log_root, run=os.path.basename(runner.log_dir))
+    per_iter = [b - a for a, b in zip([0] + per_iter[:-1], per_iter)]
+    steps = tc.runner.num_steps_per_env
+    print(f"export + eval: learn({iters}) with eval_interval 1 in "
+          f"{learn_s:.1f} s (waits for the evaluators included); patch "
+          f"launches per iteration {per_iter}")
+    if per_iter != [steps] * iters:
+        raise AssertionError(f"patch launches per iteration {per_iter}, "
+                             f"want {[steps] * iters}")
+    rows = [json.loads(line) for line in
+            open(os.path.join(runner.log_dir, "metrics.jsonl"))]
+    fps = [r["value"] for r in rows if r["tag"] == "Perf/total_fps"]
+    print(f"export + eval: learn's env-steps/s per iteration {fps} (iteration "
+          f"0 with its first calls; saves and exports left out)")
+    jit_dir = os.path.join(runner.log_dir, "jit_models")
+    want = [f"policy_jit_{i}.pt" for i in range(iters + 1)]
+    if sorted(os.listdir(jit_dir)) != want:
+        raise AssertionError(f"jit_models holds {sorted(os.listdir(jit_dir))}"
+                             f", want {want}")
+    if ev.submitted != list(range(iters + 1)):
+        raise AssertionError(f"submitted {ev.submitted}")
+    if len(ev.spawned) != len(ev.submitted):
+        raise AssertionError(f"{len(ev.spawned)} evaluator processes for "
+                             f"{len(ev.submitted)} exports")
+    if any(r["env"]["CUDA_VISIBLE_DEVICES"] != "" for r in ev.spawned):
+        raise AssertionError("an evaluator process could see the card")
+
+    # TorchScript on the CPU and on the card against the card model
+    model = runner.alg.model
+    obs_seq = rs.obs[:EXPORT_SEQ].detach().cpu().numpy()
+    student = ModelPolicy(model, device=device)
+    want_mu = np.stack([student(o) for o in obs_seq])
+    jit_path = os.path.join(jit_dir, want[-1])
+    outs = {}
+    for where in ("cpu", device):
+        pol = torch.jit.load(jit_path, map_location=where)
+        with torch.no_grad():
+            seq = []
+            for o in obs_seq:
+                a = pol(torch.as_tensor(o, device=where)[None])
+                seq.append((a[0] if isinstance(a, tuple) else a)[0])
+            pol.reset()
+            a = pol(torch.as_tensor(obs_seq[0], device=where)[None])
+            first = (a[0] if isinstance(a, tuple) else a)[0]
+        outs[where] = torch.stack(seq).cpu().numpy()
+        err, ok = within(outs[where], want_mu, 2e-5, 1e-4)
+        again = bool(torch.equal(first.cpu(), seq[0].cpu()))
+        print(f"export + eval: policy_jit_{iters}.pt on {where}, "
+              f"{EXPORT_SEQ} obs, vs the card model's student mu: "
+              f"max_abs_err {err:.3e} (tol 2e-5 + 1e-4 rel); reset() gives "
+              f"the first action back: {again}")
+        if not (ok and again):
+            raise AssertionError(f"TorchScript on {where} disagrees")
+    ref = outs["cpu"]
+
+    # every artifact of the same weights, each export timed
+    art = os.path.join(EXPORT_DIR, "artifacts")
+    paths, export_ms = {}, {}
+    for kind in ("jit", "onnx", "g2p", "pkl"):
+        t = time.perf_counter()
+        paths[kind] = exporter.export_model(
+            model, kind, "moe_cts", art,
+            meta={"task": task, "algorithm": "MoECTS"})
+        export_ms[kind] = (time.perf_counter() - t) * 1e3
+    print(f"export + eval: export ms {json.dumps(export_ms)}")
+    params = tree_from_named(model.named_parameters())
+    frames = obs_seq[-5:]
+    x = stacked_by_term(frames)
+    got = onnx_native.OnnxPolicy(paths["onnx"])(x)
+    stacked = exporter.build_torch_policy_stacked(params, "moe_cts")
+    with torch.no_grad():
+        exp = stacked(torch.as_tensor(x))
+    exp = [exp[0]] + list(exp[1])
+    err = max(within(g, e.numpy(), 1e-5)[0] for g, e in zip(got, exp))
+    print(f"export + eval: policy.onnx in OnnxPolicy vs "
+          f"build_torch_policy_stacked (actions, weights, latent): "
+          f"max_abs_err {err:.3e} (tol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError("ONNX export disagrees")
+
+    t = time.perf_counter()
+    lib = native.build_library(force=True)
+    print(f"export + eval: g++ built {os.path.relpath(lib, ROOT)} in "
+          f"{time.perf_counter() - t:.1f} s")
+    for kind in ("g2p", "onnx"):
+        pol = native.NativePolicy(paths[kind], lib)
+        got = np.stack([pol(o) for o in obs_seq])
+        pol.close()
+        err, ok = within(got, ref, 1e-5, 1e-4)
+        print(f"export + eval: policy.{kind} in NativePolicy vs the "
+              f"TorchScript: max_abs_err {err:.3e} (tol 1e-5 + 1e-4 rel)")
+        if not ok:
+            raise AssertionError(f"NativePolicy on .{kind} disagrees")
+
+    loaded, meta = exporter.load_policy_params(paths["pkl"])
+
+    def flat(tree, pre=()):
+        for k, v in tree.items():
+            yield from (flat(v, pre + (k,)) if isinstance(v, dict)
+                        else [(pre + (k,), v)])
+    a, b = dict(flat(loaded)), dict(flat(params))
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"export + eval: policy.pkl loads back equal to the parameters: "
+          f"{same} ({len(a)} arrays, meta {meta})")
+    if not same:
+        raise AssertionError("the pkl does not load back equal")
+
+    # the scoring: MuJoCo in the evaluator processes, where it exists
+    for i, rec in enumerate(ev.spawned):
+        tail = open(rec["stderr"]).read().strip().splitlines()
+        wall = (rec["end"] or time.perf_counter()) - rec["start"]
+        print(f"export + eval: evaluator {i} (policy_jit_{ev.submitted[i]}): "
+              f"exit code {rec['proc'].returncode}, wall {wall:.2f} s, last "
+              f"stderr line: {tail[-1] if tail else ''!r}")
+    try:
+        import mujoco  # noqa: F401
+    except ImportError:
+        print("export + eval: MuJoCo is absent on this machine, so the "
+              "evaluators cannot score; the scoring is held on the CPU by "
+              "tests/test_torch_eval_hook.py")
+        return counts
+    for it in ev.submitted:
+        out = os.path.join(runner.log_dir, "eval_results",
+                           f"results_{it}.yaml")
+        with open(out) as f:
+            scores = yaml.safe_load(f)
+        print(f"export + eval: results_{it}.yaml {json.dumps(scores)}")
+        for k in ("tracking", "safety", "quality", "overall"):
+            if not 0.0 <= float(scores[k]) <= 1.0:
+                raise AssertionError(f"results_{it}: {k} = {scores[k]}")
+    return counts
+
+
+def phase_play_checkpoint(shared, device="cuda"):
+    """scripts.play's checkpoint mode on phase export + eval's model_2.pt."""
+    from go2_rl_gym_tpu_torch.scripts import play
+
+    if "run" not in shared:
+        raise AssertionError("phase export + eval wrote no run")
+    reset_launch_counts()
+    res = play.main(["--task", "go2_moe_cts", "--log_root",
+                     shared["log_root"], "--load_run", shared["run"],
+                     "--checkpoint", "2", "--num_envs", "16", "--steps",
+                     str(STEPS), "--device", device])
+    counts = launch_counts()
+    print(f"play checkpoint: {os.path.relpath(res['checkpoint'], ROOT)} at "
+          f"16 envs, {STEPS} steps: mean reward per step "
+          f"{[round(r, 5) for r in res['mean_reward']]}; exported "
+          f"{sorted(res['exported'])}; launches {counts}")
+    if sorted(res["exported"]) != ["jit", "onnx", "pkl"] or not all(
+            os.path.getsize(p) > 0 for p in res["exported"].values()):
+        raise AssertionError(f"exported {res['exported']}")
+    if not res["finite"]:
+        raise AssertionError("play checkpoint produced non-finite values")
+    if counts["extract_patches"] != STEPS + 1:
+        raise AssertionError(f"extract_patches launched "
+                             f"{counts['extract_patches']} times, want "
+                             f"{STEPS + 1}")
+    return counts
+
+
 def main():
     sys.path.insert(0, ROOT)
     try:
@@ -518,6 +814,7 @@ def main():
 
     failures = []
     results = {}
+    shared = {}
     t0 = time.perf_counter()
     try:
         for m in modules:
@@ -538,6 +835,8 @@ def main():
               ("train go2_lstm", lambda: phase_train("go2_lstm")),
               ("train go2_fast_flat_move",
                lambda: phase_train("go2_fast_flat_move", iterations=1)),
+              ("export + eval", lambda: phase_export_eval(shared)),
+              ("play checkpoint", lambda: phase_play_checkpoint(shared)),
               ("train ddp", phase_train_ddp)]
     launches = {}
     for name, fn in phases:

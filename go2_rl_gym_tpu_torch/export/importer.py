@@ -1,5 +1,5 @@
-"""Weights into the port's policy modules
-(PyTorch port of the import side of go2_rl_gym_tpu/export/importer.py).
+"""Weights into and out of the port's policy modules
+(PyTorch port of go2_rl_gym_tpu/export/importer.py).
 
 Two sources:
 
@@ -17,8 +17,9 @@ Two sources:
 ``params_from_jax`` and its inverse ``tree_from_named`` work by parameter
 name: they cover all six CTS families, ``ActorCritic`` and
 ``ActorCriticRecurrent`` (LSTM and GRU, whose gate modules carry flax's
-names, ``memory_a.cell.if.weight`` <-> ``memory_a/cell/if/kernel``); the
-reference ``.pt`` naming is mapped for ``moe_cts`` and ``cts``.
+names, ``memory_a.cell.if.weight`` <-> ``memory_a/cell/if/kernel``). The
+reference ``.pt`` naming is mapped both ways for the six CTS families
+(``import_reference_state_dict``, ``export_reference_state_dict``).
 """
 from __future__ import annotations
 
@@ -84,6 +85,19 @@ def _mlp_from_sd(sd: Dict[str, np.ndarray], prefix: str) -> Dict:
     return out
 
 
+def _mlp_to_sd(params: Dict, prefix: str, sd: Dict[str, np.ndarray],
+               stride: int = 2):
+    """Inverse of _mlp_from_sd: {fcJ: kernel, bias} ->
+    ``<prefix>.<2j>.weight/bias`` (the reference's Sequentials put the
+    Linears at even indices, activations between)."""
+    keys = sorted(params.keys(), key=lambda k: int(k[2:]))
+    for j, k in enumerate(keys):
+        sd[f"{prefix}.{j * stride}.weight"] = np.asarray(
+            params[k]["kernel"], np.float32).T.copy()
+        sd[f"{prefix}.{j * stride}.bias"] = np.asarray(
+            params[k]["bias"], np.float32).copy()
+
+
 def _conv_head_from_sd(sd, key_w, key_b, expert_num: int) -> Dict:
     """Grouped Conv1d (E*O, H, 1) -> head_kernel (E, H, O), head_bias (E, O)."""
     w = np.asarray(sd[key_w], np.float32)
@@ -95,6 +109,61 @@ def _conv_head_from_sd(sd, key_w, key_b, expert_num: int) -> Dict:
             "head_bias": b.reshape(expert_num, O).copy()}
 
 
+def _conv_head_to_sd(experts: Dict, key_w, key_b, sd):
+    k = np.asarray(experts["head_kernel"], np.float32)   # (E, H, O)
+    b = np.asarray(experts["head_bias"], np.float32)     # (E, O)
+    E, H, O = k.shape
+    sd[key_w] = np.ascontiguousarray(
+        k.transpose(0, 2, 1).reshape(E * O, H))[..., None]
+    sd[key_b] = b.reshape(E * O).copy()
+
+
+def _experts_from_sd(sd, backbone_prefix, hidden_key_prefix, conv_prefix,
+                     expert_num):
+    """The reference's split backbone (experts_backbone + experts_hidden.0 +
+    conv) -> Experts params (the backbone MLP with the hidden Linear as its
+    last fc)."""
+    backbone = _mlp_from_sd(sd, backbone_prefix)
+    nfc = len(backbone)
+    hid_w = np.asarray(sd[f"{hidden_key_prefix}.0.weight"], np.float32)
+    hid_b = np.asarray(sd[f"{hidden_key_prefix}.0.bias"], np.float32)
+    backbone[f"fc{nfc}"] = {"kernel": hid_w.T.copy(), "bias": hid_b.copy()}
+    out = {"backbone": backbone}
+    out.update(_conv_head_from_sd(sd, f"{conv_prefix}.weight",
+                                  f"{conv_prefix}.bias", expert_num))
+    return out
+
+
+def _experts_to_sd(experts: Dict, backbone_prefix, hidden_key_prefix,
+                   conv_prefix, sd):
+    backbone = dict(experts["backbone"])
+    keys = sorted(backbone.keys(), key=lambda k: int(k[2:]))
+    hidden = backbone.pop(keys[-1])
+    _mlp_to_sd(backbone, backbone_prefix, sd)
+    sd[f"{hidden_key_prefix}.0.weight"] = np.asarray(
+        hidden["kernel"], np.float32).T.copy()
+    sd[f"{hidden_key_prefix}.0.bias"] = np.asarray(
+        hidden["bias"], np.float32).copy()
+    _conv_head_to_sd(experts, f"{conv_prefix}.weight", f"{conv_prefix}.bias",
+                     sd)
+
+
+def _fused_experts_from_sd(sd, prefix, expert_num):
+    """utils.Experts (the backbone MLP ends in the E*H layer, the conv is
+    named ``<prefix>.experts``) -> Experts params."""
+    return {
+        "backbone": _mlp_from_sd(sd, f"{prefix}.backbone"),
+        **_conv_head_from_sd(sd, f"{prefix}.experts.weight",
+                             f"{prefix}.experts.bias", expert_num),
+    }
+
+
+def _fused_experts_to_sd(experts, prefix, sd):
+    _mlp_to_sd(experts["backbone"], f"{prefix}.backbone", sd)
+    _conv_head_to_sd(experts, f"{prefix}.experts.weight",
+                     f"{prefix}.experts.bias", sd)
+
+
 def _infer_expert_num(sd, gating_prefix) -> int:
     pat = re.compile(re.escape(gating_prefix) + r"\.(\d+)\.weight$")
     idxs = sorted(int(m.group(1)) for k in sd
@@ -104,11 +173,14 @@ def _infer_expert_num(sd, gating_prefix) -> int:
 
 def import_reference_state_dict(sd: Dict[str, np.ndarray],
                                 family: str) -> Dict:
-    """Reference ``model_state_dict`` -> ``{"params": tree}`` for the
-    families `moe_cts` and `cts` (reference actor_critic_moe_cts.py /
-    actor_critic_cts.py). Missing modules are absent from the result."""
-    if family not in ("moe_cts", "cts"):
-        raise ValueError(f"family {family!r} is not ported")
+    """Reference ``model_state_dict`` -> ``{"params": tree}`` for the six
+    families' module layouts (reference actor_critic_cts.py /
+    actor_critic_moe_cts.py / actor_critic_moe_ng_cts.py /
+    actor_critic_mcp_cts.py / actor_critic_ac_moe_cts.py /
+    actor_critic_dual_moe_cts.py). Modules missing from `sd` (a deploy
+    artifact has no teacher or critic) are absent from the result;
+    `params_from_jax` leaves them at the model's weights, which is what the
+    JAX package's `complete_params` does with a fresh init."""
     sd = {_norm_name(k): v for k, v in sd.items()}
     p: Dict = {}
 
@@ -119,29 +191,118 @@ def import_reference_state_dict(sd: Dict[str, np.ndarray],
             pass
 
     maybe_mlp("teacher_encoder", "teacher_encoder")
-    if family == "moe_cts":
+
+    # --- student encoder ---
+    if family in ("moe_cts", "dual_moe_cts"):
         gating = "student_moe_encoder.moe.gating_network.0"
         E = _infer_expert_num(sd, gating)
-        experts = {"backbone": _mlp_from_sd(
-            sd, "student_moe_encoder.moe.experts.backbone")}
-        experts.update(_conv_head_from_sd(
-            sd, "student_moe_encoder.moe.experts.experts.weight",
-            "student_moe_encoder.moe.experts.experts.bias", E))
-        p["student_encoder"] = {"moe": {"experts": experts,
-                                        "gating": _mlp_from_sd(sd, gating)}}
+        p["student_encoder"] = {"moe": {
+            "experts": _fused_experts_from_sd(
+                sd, "student_moe_encoder.moe.experts", E),
+            "gating": _mlp_from_sd(sd, gating),
+        }}
+    elif family == "moe_ng_cts":
+        E = _infer_expert_num(sd, "student_moe_encoder.gating_network")
+        p["student_encoder"] = {
+            "experts": _experts_from_sd(
+                sd, "student_moe_encoder.experts_backbone",
+                "student_moe_encoder.experts_hidden",
+                "student_moe_encoder.experts_out", E),
+            "gating": _mlp_from_sd(sd, "student_moe_encoder.gating_network"),
+        }
     else:
         maybe_mlp("student_encoder", "student_encoder")
-    maybe_mlp("actor", "actor")
-    maybe_mlp("critic", "critic")
-    if "std" in sd:
+
+    # --- actor ---
+    if family == "mcp_cts":
+        E = _infer_expert_num(sd, "actor_mcp.gating_network")
+        p["actor"] = {
+            "experts": _experts_from_sd(sd, "actor_mcp.experts_backbone",
+                                        "actor_mcp.experts_hidden",
+                                        "actor_mcp.experts_out", E),
+            "gating": _mlp_from_sd(sd, "actor_mcp.gating_network"),
+        }
+    elif family in ("ac_moe_cts", "dual_moe_cts"):
+        E = _infer_expert_num(sd, "actor_moe.gating_network.0")
+        p["actor"] = {
+            "experts": _fused_experts_from_sd(sd, "actor_moe.experts", E),
+            "gating": _mlp_from_sd(sd, "actor_moe.gating_network.0"),
+        }
+    else:
+        maybe_mlp("actor", "actor")
+
+    # --- critic ---
+    if family in ("ac_moe_cts", "dual_moe_cts"):
+        if any(k.startswith("critic_experts.") for k in sd):
+            E = p["actor"]["gating"][sorted(
+                p["actor"]["gating"])[-1]]["kernel"].shape[1]
+            p["critic"] = _fused_experts_from_sd(sd, "critic_experts", E)
+    else:
+        maybe_mlp("critic", "critic")
+
+    if "std" in sd and family != "mcp_cts":
         p["std"] = np.asarray(sd["std"], np.float32).copy()
     return {"params": p}
 
 
+def export_reference_state_dict(params, family: str) -> Dict[str, np.ndarray]:
+    """A model's parameters -> reference ``model_state_dict`` naming
+    (loadable by the reference's ActorCritic*.load_state_dict for matching
+    configs). `params` is a port model (read through `tree_from_named`, one
+    copy to the host) or a JAX-layout tree, ``{"params": ...}`` or bare."""
+    if isinstance(params, nn.Module):
+        params = tree_from_named(params.named_parameters())
+    p = params["params"] if "params" in params else params
+    sd: Dict[str, np.ndarray] = {}
+
+    if "teacher_encoder" in p:
+        _mlp_to_sd(p["teacher_encoder"], "teacher_encoder", sd)
+
+    if "student_encoder" in p:
+        se = p["student_encoder"]
+        if family in ("moe_cts", "dual_moe_cts"):
+            _fused_experts_to_sd(se["moe"]["experts"],
+                                 "student_moe_encoder.moe.experts", sd)
+            _mlp_to_sd(se["moe"]["gating"],
+                       "student_moe_encoder.moe.gating_network.0.network", sd)
+        elif family == "moe_ng_cts":
+            _experts_to_sd(se["experts"],
+                           "student_moe_encoder.experts_backbone",
+                           "student_moe_encoder.experts_hidden",
+                           "student_moe_encoder.experts_out", sd)
+            _mlp_to_sd(se["gating"], "student_moe_encoder.gating_network", sd)
+        else:
+            _mlp_to_sd(se, "student_encoder", sd)
+
+    if "actor" in p:
+        a = p["actor"]
+        if family == "mcp_cts":
+            _experts_to_sd(a["experts"], "actor_mcp.experts_backbone",
+                           "actor_mcp.experts_hidden", "actor_mcp.experts_out",
+                           sd)
+            _mlp_to_sd(a["gating"], "actor_mcp.gating_network", sd)
+        elif family in ("ac_moe_cts", "dual_moe_cts"):
+            _fused_experts_to_sd(a["experts"], "actor_moe.experts", sd)
+            _mlp_to_sd(a["gating"], "actor_moe.gating_network.0.network", sd)
+        else:
+            _mlp_to_sd(a, "actor", sd)
+
+    if "critic" in p:
+        c = p["critic"]
+        if family in ("ac_moe_cts", "dual_moe_cts"):
+            _fused_experts_to_sd(c, "critic_experts", sd)
+        else:
+            _mlp_to_sd(c, "critic", sd)
+
+    if "std" in p:
+        sd["std"] = np.asarray(p["std"], np.float32).copy()
+    return sd
+
+
 def _import_deploy_tensors(sd: Dict[str, np.ndarray], family: str) -> Dict:
     """TorchScript deploy artifact (the reference exporter's naming, or the
-    JAX package's exporter: backbone/gating Sequentials + head_w/head_b)
-    -> partial tree (student encoder + actor)."""
+    exporters' of either package: backbone/gating Sequentials +
+    head_w/head_b) -> partial tree (student encoder + actor)."""
     sd = {_norm_name(k): v for k, v in sd.items()}
     if any(k.startswith("student_moe_encoder.") for k in sd):
         return import_reference_state_dict(sd, family)
@@ -166,9 +327,12 @@ def _import_deploy_tensors(sd: Dict[str, np.ndarray], family: str) -> Dict:
 
 
 def import_policy_from_pt(path: str, family: str = "moe_cts") -> Dict:
-    """Any reference / JAX-package ``.pt`` -> ``{"params": tree}``."""
+    """Any reference / JAX-package / port ``.pt`` -> ``{"params": tree}``:
+    a training checkpoint's full tree, or a deploy artifact's inference
+    modules (student encoder + actor)."""
     sd = tensors_from_pt(path)
-    if any(k.startswith(("teacher_encoder.", "critic.")) for k in sd):
+    if any(k.startswith(("teacher_encoder.", "critic.", "critic_experts."))
+           for k in sd):
         return import_reference_state_dict(sd, family)
     return _import_deploy_tensors(sd, family)
 

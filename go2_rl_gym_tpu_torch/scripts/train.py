@@ -6,7 +6,9 @@ of legged_gym/utils/helpers.py:128-157. Builds the task's env and runner on
 length, optionally resumes the latest (or a named) checkpoint of the
 experiment, and runs `learn`. Every registered task trains (PPO `go2`,
 recurrent PPO `go2_lstm`, the six CTS tasks, the three ablation variants;
-`utils.registry.task_names()`).
+`utils.registry.task_names()`). With `--eval_interval N`, rank 0 exports
+the policy every N iterations and scores it in MuJoCo in the background
+(CTS tasks; `train/eval_hook.py`), logging `Eval/*`.
 
 Data-parallel over W ranks, one process per card (NCCL; gloo with
 `--device cpu`), each stepping num_envs / W of the envs (scripts/train.py:
@@ -56,7 +58,7 @@ def get_args(argv=None):
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of iterations 10-12")
     p.add_argument("--eval_interval", type=int, default=0,
-                   help="async sim2sim eval every N iterations (not ported)")
+                   help="run async MuJoCo sim2sim eval every N iterations")
     p.add_argument("--multihost", action="store_true",
                    help="initialise torch.distributed from the launcher's "
                         "environment (implied under torch.distributed.run)")
@@ -68,10 +70,6 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
-    if args.eval_interval:
-        raise NotImplementedError(
-            "--eval_interval: the sim2sim eval hook is not ported to "
-            "go2_rl_gym_tpu_torch yet")
     from go2_rl_gym_tpu_torch.utils import registry
     from go2_rl_gym_tpu_torch.utils.helpers import (get_load_path,
                                                     update_cfg_from_args)
@@ -99,7 +97,8 @@ def main(argv=None):
         device=device, mesh=mesh)
     runner = registry.make_runner(args.task, env, train_cfg,
                                   log_root=args.log_root,
-                                  run_name=args.run_name, device=device)
+                                  run_name=args.run_name, device=device,
+                                  eval_interval=args.eval_interval)
     rs = runner.init_runner_state(train_cfg.seed, init_at_random_ep_len=True)
     if args.resume:
         path = get_load_path(os.path.join(args.log_root,

@@ -8,7 +8,8 @@ selects the algorithm (JAX runner.py:65-84): "PPO" (agents/ppo.py),
 (agents/cts.py). One train iteration (`train_step`) is the 24-step rollout
 (with the student's obs-history buffer for CTS, the RNN memory for
 recurrent PPO), GAE, and the update; `learn` loops over iterations on the
-host, logs, and checkpoints.
+host, logs, checkpoints, and (with `eval_interval`) exports the policy and
+scores it in MuJoCo in the background.
 
 Where the state lives: everything the env and the rollout carry is in
 `RunnerState`; the train state (the model's parameters, the Adam states,
@@ -43,6 +44,8 @@ from go2_rl_gym_tpu_torch.device import resolve_device
 from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.env.config import TrainCfg
 from go2_rl_gym_tpu_torch.env.go2_env import EnvState, Go2Env
+from go2_rl_gym_tpu_torch.export import exporter
+from go2_rl_gym_tpu_torch.train.eval_hook import AsyncEvaluator
 from go2_rl_gym_tpu_torch.train.metrics import MetricsWriter
 
 
@@ -134,12 +137,16 @@ class OnPolicyRunner:
 
     `device` defaults to the card and must be the env's device. With a
     `log_dir`, `learn` writes metrics and checkpoints there (rank 0's only,
-    under a mesh). An env that is a rank's shard (`Go2Env(mesh=...)`) makes
-    the runner data-parallel over its mesh (`attach_mesh`)."""
+    under a mesh). With a `log_dir` and an `eval_interval`, rank 0 exports
+    the policy every `eval_interval` iterations and scores it in MuJoCo in
+    the background (`train/eval_hook.py`, CTS algorithms only, as in the JAX
+    package). An env that is a rank's shard (`Go2Env(mesh=...)`) makes the
+    runner data-parallel over its mesh (`attach_mesh`)."""
 
     def __init__(self, env: Go2Env, train_cfg: TrainCfg,
                  log_dir: Optional[str] = None, device="cuda",
-                 eval_interval: int = 0):
+                 eval_interval: int = 0,
+                 eval_scenes=("flat", "stairs", "cross_slope")):
         self.device = resolve_device(device)
         if env.device != self.device:
             raise ValueError(f"env lives on {env.device}, runner on "
@@ -147,7 +154,7 @@ class OnPolicyRunner:
         self.env = env
         self.cfg = train_cfg
         self.log_dir = log_dir
-        # the async sim2sim eval hook is not ported; learn refuses it
+        # async sim2sim eval (RoboGauge counterpart); 0 = disabled
         self.eval_interval = eval_interval
         self.num_steps = train_cfg.runner.num_steps_per_env
         self.save_interval = train_cfg.runner.save_interval
@@ -183,6 +190,9 @@ class OnPolicyRunner:
                 }, f)
         if env.mesh is not None:
             self.attach_mesh(env.mesh)
+        self.evaluator = None
+        if eval_interval and log_dir and self.is_main:
+            self.evaluator = AsyncEvaluator(log_dir, scenes=eval_scenes)
 
     def attach_mesh(self, mesh: mesh_lib.Mesh):
         """Switch to data-parallel execution as rank `mesh.rank` (JAX
@@ -410,11 +420,12 @@ class OnPolicyRunner:
         Logs every `log_every` iterations (and the last), prints every
         `print_every`, saves model_<it>.pt after iteration <it> when <it> is
         a multiple of save_interval, and the final model_<end>.pt (JAX
-        runner.py:337-463, without its chunked dispatch)."""
-        if self.eval_interval:
-            raise NotImplementedError(
-                "the sim2sim eval hook is not ported to go2_rl_gym_tpu_torch "
-                "yet")
+        runner.py:337-463, without its chunked dispatch). With an evaluator
+        (CTS only), exports jit_models/policy_jit_<it>.pt after iteration
+        <it> when <it> is a multiple of eval_interval and after the last,
+        submits each to the evaluator, logs its scores as Eval/* as they
+        arrive, and waits up to 600 s for the outstanding ones at the end.
+        Saves and exports are left out of the iteration's timing."""
         rewbuffer = deque(maxlen=100)
         lenbuffer = deque(maxlen=100)
         srewbuffer = deque(maxlen=100)
@@ -422,6 +433,8 @@ class OnPolicyRunner:
         start_iter = self.current_iteration
         tot_iter = start_iter + num_iterations
         do_save = bool(self.log_dir and self.save_interval)
+        do_eval = bool(self.evaluator is not None and self.is_cts
+                       and self.eval_interval)
         keys = sizes = None
         t_window = time.time()
         for it in range(start_iter, tot_iter):
@@ -461,13 +474,44 @@ class OnPolicyRunner:
                     f"surr "
                     f"{float(pmetrics.get('surrogate_loss', 0)):.4f}",
                     flush=True)
-            if do_save and it % self.save_interval == 0:
+            need_save = do_save and it % self.save_interval == 0
+            need_eval = do_eval and it % self.eval_interval == 0
+            if need_save:
                 self.save(rs, os.path.join(self.log_dir, f"model_{it}.pt"))
-                t_window = time.time()   # exclude the save from timing
+            if need_eval:
+                self._submit_eval(it)
+            if self.evaluator is not None:
+                self._log_eval(self.evaluator.poll())
+            if need_save or need_eval:
+                t_window = time.time()   # exclude save/eval from timing
         if self.log_dir:
             self.save(rs, os.path.join(
                 self.log_dir, f"model_{self.current_iteration}.pt"))
+        if self.evaluator is not None:
+            if self.is_cts:
+                self._submit_eval(self.current_iteration)
+            # block for the final model's score (reference
+            # on_policy_runner.py:271-291)
+            self._log_eval(self.evaluator.wait_all(timeout=600))
         return rs
+
+    def _submit_eval(self, it: int):
+        """Export the policy as jit_models/policy_jit_<it>.pt and submit it
+        (JAX runner.py:465-475)."""
+        family = cts_lib.ALGO_TO_FAMILY[self.cfg.runner.algorithm_class_name]
+        path = exporter.export_model(
+            self.alg.model, "jit", family,
+            os.path.join(self.log_dir, "jit_models"),
+            filename=f"policy_jit_{it}.pt")
+        self.evaluator.submit(path, it)
+
+    def _log_eval(self, results):
+        for eit, scores in results.items():
+            for k, v in scores.items():
+                if isinstance(v, (int, float)):
+                    self.writer.add_scalar(f"Eval/{k}", v, eit)
+        if results:
+            self.writer.flush()
 
     def _log(self, it, metrics, dt_iter, rewbuffer, lenbuffer, srew, slen):
         w = self.writer

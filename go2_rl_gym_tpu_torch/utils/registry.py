@@ -51,7 +51,10 @@ def make_env(name: str, env_cfg=None, num_envs: Optional[int] = None,
 
 def make_runner(name: str, env: Go2Env, train_cfg=None,
                 log_root: Optional[str] = None, run_name: str = "",
-                device="cuda") -> OnPolicyRunner:
+                device="cuda", eval_interval: int = 0) -> OnPolicyRunner:
+    """The task's runner on `env`; with a `log_root`, logging to
+    <log_root>/<experiment>/<date>[_<run_name>] (and scoring its exports in
+    MuJoCo every `eval_interval` iterations, when that is set)."""
     if train_cfg is None:
         _, train_cfg = get_cfgs(name)
     log_dir = None
@@ -60,7 +63,8 @@ def make_runner(name: str, env: Go2Env, train_cfg=None,
         log_dir = os.path.join(
             log_root, train_cfg.runner.experiment_name,
             stamp + ("_" + run_name if run_name else ""))
-    return OnPolicyRunner(env, train_cfg, log_dir=log_dir, device=device)
+    return OnPolicyRunner(env, train_cfg, log_dir=log_dir, device=device,
+                          eval_interval=eval_interval)
 
 
 # ---- the seven reference tasks (legged_gym/envs/__init__.py:9-15) ----

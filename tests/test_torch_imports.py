@@ -58,13 +58,15 @@ def test_guard_flags_the_old_package():
 
 
 def test_entry_points_default_to_the_card():
+    from go2_rl_gym_tpu_torch.deploy.mujoco_eval import ModelPolicy
     from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
     from go2_rl_gym_tpu_torch.env.vec_env import VecEnvAdapter
     from go2_rl_gym_tpu_torch.scripts import train
-    from go2_rl_gym_tpu_torch.scripts.play import play
+    from go2_rl_gym_tpu_torch.scripts.play import play, play_checkpoint
     from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
     from go2_rl_gym_tpu_torch.utils import registry
     for fn in (Go2Env.__init__, OnPolicyRunner.__init__, play,
+               play_checkpoint, ModelPolicy.__init__,
                registry.make_env, registry.make_runner,
                VecEnvAdapter.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -90,3 +92,23 @@ def test_train_entry_points_raise_without_a_card():
     env = registry.make_env("go2_cts", cfg, num_envs=8, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         registry.make_runner("go2_cts", env)
+
+
+def test_export_and_deploy_entry_points_raise_without_a_card(monkeypatch):
+    """ModelPolicy and play's checkpoint mode (its --device flag defaults
+    to the card too) refuse to fall back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device works")
+    from go2_rl_gym_tpu_torch.deploy.mujoco_eval import ModelPolicy
+    from go2_rl_gym_tpu_torch.scripts import play
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ModelPolicy(model)
+    with pytest.raises(RuntimeError, match="cuda"):
+        play.play_checkpoint("go2_moe_cts", log_root="no_such_dir")
+    seen = {}
+    monkeypatch.setattr(play, "play_checkpoint",
+                        lambda *args: seen.setdefault("args", args))
+    play.main(["--task", "go2_moe_cts"])
+    assert seen["args"][-1] == "cuda"

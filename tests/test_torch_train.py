@@ -20,6 +20,7 @@
 """
 import json
 import os
+import sys
 
 import jax
 import numpy as np
@@ -318,8 +319,22 @@ def test_train_script_runs_and_resumes(tmp_path):
     assert "model_3.pt" in os.listdir(runner2.log_dir)
 
 
-def test_script_rejects_what_is_not_ported():
-    """Every registered task trains (tests/test_torch_tasks.py runs go2);
-    the sim2sim eval hook is not ported yet."""
-    with pytest.raises(NotImplementedError, match="eval hook"):
-        train_script.main(["--eval_interval", "5", "--device", "cpu"])
+def test_script_rejects_what_is_not_ported(tmp_path, monkeypatch):
+    """Everything the script offers is ported: --eval_interval reaches the
+    runner's evaluator, which exports and submits the final model (the
+    evaluator process is replaced by a no-op here; the scoring runs in
+    tests/test_torch_eval_hook.py). What it still rejects is a
+    --num_devices that the launcher did not start."""
+    from go2_rl_gym_tpu_torch.train import eval_hook
+    monkeypatch.setattr(eval_hook.AsyncEvaluator, "command",
+                        lambda self, policy, out: [sys.executable, "-c", ""])
+    runner, _ = train_script.main(
+        ["--task", "go2_cts", "--num_envs", "8", "--terrain", "plane",
+         "--device", "cpu", "--log_root", str(tmp_path),
+         "--max_iterations", "0", "--eval_interval", "5"])
+    assert runner.eval_interval == 5
+    assert runner.evaluator.scenes == ["flat", "stairs", "cross_slope"]
+    assert os.listdir(os.path.join(runner.log_dir, "jit_models")) == [
+        "policy_jit_0.pt"]
+    with pytest.raises(RuntimeError, match="--num_devices 2"):
+        train_script.main(["--num_devices", "2", "--device", "cpu"])
