@@ -78,7 +78,30 @@ Phases (any failure exits non-zero and prints no result line):
    policy step must launch the patch kernel once (24 per train iteration)
    and the plane none, and obs and rewards must be finite. Every spawned
    process has a timeout and is killed with its process group on failure.
-12. Print one JSON line listing every kernel, then the device line.
+12. Engine (sim/engine.py, the N-major reference engine; no hand-written
+   kernel on its path: it reads the global heightfield, not the patches):
+   the flagship terrain's TerrainData (the global 1345 x 2195 heightfield)
+   at 4096 envs, with the env's spawn states (init_state, DR on) and the
+   states 20 zero-action env steps later (landed, in contact). (a) 4 card
+   substeps of make_batched_substep from the landed states against the
+   port's CPU engine on the first 16 envs, at the single-substep
+   tolerances of tests/test_torch_physics.py. (b) One decimated step of
+   the card's tengine.make_physics_step (solver_iters=30, the direct
+   heightfield path) against 4 card substeps of the N-major engine: from
+   the spawn states every env within the cross-parity tolerances of
+   tests/test_tengine.py:68-82; from the landed states the share of envs
+   beyond them is printed (the JAX package's two engines differ there as
+   much: tests/test_torch_engine.py), and the card's difference between
+   the engines is held against the CPU's on the first 16 envs at the
+   single-substep tolerances. Prints ms per substep (host clock with a
+   synchronize), kernel launches and device-busy ms per substep
+   (torch.profiler), and the same for tengine's production physics step.
+13. Graft (go2_rl_gym_tpu_torch/graft_entry.py): entry()'s forward (the
+   go2_moe_cts student at batch 256) on the card against the CPU on the
+   same weights and seeded inputs within 1e-5; dryrun_multichip over
+   torch.cuda.device_count() NCCL ranks (world 1 on one card): finite
+   metrics, 4 patch launches per rank (one per policy step).
+14. Print one JSON line listing every kernel, then the device line.
 """
 from __future__ import annotations
 
@@ -102,6 +125,13 @@ RANK_TIMEOUT_S = 400            # for any spawned process
 EXPORT_DIR = os.path.join(ROOT, "build", "export_eval")
 EVAL_TIMEOUT_S = 240            # for the evaluator processes of the hook
 EXPORT_SEQ = 7                  # obs fed through the exported policies
+ENGINE_SETTLE_STEPS = 20        # zero-action env steps from spawn to landed
+ENGINE_CPU_ENVS = 16            # envs the card engine is held against the CPU
+# single-substep tolerances (tests/test_torch_physics.py)
+SUBSTEP_TOL = dict(base_pos=1e-5, base_quat=1e-5, q=1e-5, base_lin_vel=1e-4,
+                   base_ang_vel=1e-4, qd=1e-4)
+# tengine vs the N-major engine (tests/test_tengine.py:68-82)
+CROSS_TOL = dict(base_pos=2e-4, q=2e-3, qd=0.1, base_quat=2e-4)
 
 
 def fail(msg):
@@ -790,6 +820,207 @@ def phase_play_checkpoint(shared, device="cuda"):
     return counts
 
 
+def profiled(fn, reps=5):
+    """(host ms per call, kernel launches per call, device-busy ms per call):
+    the host clock over `reps` calls ended by a synchronize, after one
+    warm-up call; then one call under torch.profiler."""
+    import torch
+    from go2_rl_gym_tpu_torch.tools.profile_rollout import _device_us, _kernels
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) * 1e3 / reps
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = _kernels(prof)
+    return (host_ms, sum(e.count for e in kernels),
+            sum(_device_us(e) for e in kernels) / 1e3)
+
+
+def _worst(got, want, tol, fields):
+    """Per field: (max abs error, share of envs beyond `tol`)."""
+    out = {}
+    for f in fields:
+        err = (getattr(got, f) - getattr(want, f)).abs()
+        per_env = err.reshape(err.shape[0], -1).amax(dim=1)
+        out[f] = (float(per_env.max()), float((per_env > tol[f]).float()
+                                              .mean()))
+    return out
+
+
+def phase_engine():
+    """The N-major reference engine on the card (see the module
+    docstring). Launches no hand-written kernel on its path."""
+    import torch
+    from go2_rl_gym_tpu_torch.env.config import Go2Cfg
+    from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+    from go2_rl_gym_tpu_torch.sim import engine, tengine
+
+    cfg = Go2Cfg()
+    cfg.env.num_envs = NUM_ENVS
+    env = Go2Env(cfg)
+    model, params = env.model, env.sim_params
+    direct = env.terrain._replace(channels=None)     # the global heightfield
+    print(f"engine: flagship heightfield {tuple(direct.height.shape)}, "
+          f"{NUM_ENVS} envs")
+    spawn = env.init_state(0)
+    landed = spawn
+    zero = torch.zeros((NUM_ENVS, 12), device="cuda")
+    with torch.no_grad():
+        for _ in range(ENGINE_SETTLE_STEPS):
+            landed, _ = env.step(landed, zero)
+    n = ENGINE_CPU_ENVS
+
+    def pd_substeps(step, dyn, s, dev):
+        q0 = env.default_dof_pos.to(dev)
+        effort = torch.as_tensor(model.dof_effort_limit, dtype=torch.float32,
+                                 device=dev)
+        kd = torch.full_like(s.q, 0.5)
+        for _ in range(4):
+            tau = torch.clamp(20.0 * (q0 - s.q) - 0.5 * s.qd, -effort, effort)
+            s, out = step(dyn, s, tau, kd)
+        return s, out
+
+    def head(tree, dev="cpu"):
+        return type(tree)(*[x[:n].to(dev) for x in tree])
+
+    # (a) card vs CPU, landed states
+    card_step = engine.make_batched_substep(model, params, direct)
+    cpu_step = engine.make_batched_substep(
+        model, params, engine.terrain_to(direct, "cpu"), device="cpu")
+    with torch.no_grad():
+        s_card, o_card = pd_substeps(card_step, landed.dyn, landed.sim,
+                                     "cuda")
+        s_cpu, o_cpu = pd_substeps(cpu_step, head(landed.dyn),
+                                   head(landed.sim), "cpu")
+    errs = _worst(head(s_card), s_cpu, SUBSTEP_TOL, SUBSTEP_TOL)
+    f_err = max(float(((getattr(head(o_card), k) - getattr(o_cpu, k)).abs()
+                       - 1e-4 * getattr(o_cpu, k).abs()).max())
+                for k in ("contact_forces", "foot_forces"))
+    contact = float(o_cpu.foot_forces[..., 2].sum(dim=1).mean())
+    print(f"engine (a): 4 card substeps vs the CPU engine, first {n} of "
+          f"{NUM_ENVS} landed envs: max_abs_err "
+          + json.dumps({k: v[0] for k, v in errs.items()})
+          + f", forces beyond 1e-4 rel by {f_err:.3e} N (tol 1e-3); mean "
+          f"foot Fz {contact:.1f} N")
+    finite = all(bool(torch.isfinite(x).all()) for x in s_card)
+    bad_a = ([k for k, v in errs.items() if v[1] > 0]
+             + (["forces"] if f_err > 1e-3 else [])
+             + ([] if finite else ["non-finite"]))
+
+    # (b) tengine vs the N-major engine on the card
+    p30 = params._replace(solver_iters=30)
+    phys = tengine.make_physics_step(model, p30, direct, 4)
+    bsub = engine.make_batched_substep(model, p30, direct)
+    cpu_phys = tengine.make_physics_step(
+        model, p30, engine.terrain_to(direct, "cpu"), 4)
+    cpu_bsub = engine.make_batched_substep(
+        model, p30, engine.terrain_to(direct, "cpu"), device="cpu")
+
+    def both(phys, bsub, st_dyn, st_sim, dev):
+        N = st_sim.q.shape[0]
+        targets = env.default_dof_pos.to(dev).expand(4, N, 12)
+        kp, kd = (torch.full((N, 12), v, device=dev) for v in (20.0, 0.5))
+        ones, zeros = torch.ones_like(kp), torch.zeros_like(kp)
+        s_t, o_t, _, _ = phys(st_dyn, st_sim, targets, kp, kd, ones, zeros)
+        s_r, o_r = pd_substeps(bsub, st_dyn, st_sim, dev)
+        return s_t, o_t, s_r, o_r
+
+    bad_b = []
+    for name, st in (("spawn", spawn), ("landed", landed)):
+        with torch.no_grad():
+            s_t, o_t, s_r, o_r = both(phys, bsub, st.dyn, st.sim, "cuda")
+        errs = _worst(s_t, s_r, CROSS_TOL, CROSS_TOL)
+        # contact forces: the error beyond 5% of the N-major engine's
+        cf = ((o_t.contact_forces - o_r.contact_forces).abs()
+              - 0.05 * o_r.contact_forces.abs()).reshape(NUM_ENVS, -1)
+        fp = (o_t.foot_pos - o_r.foot_pos).abs().reshape(NUM_ENVS, -1)
+        errs["contact_forces"] = (float(cf.max()),
+                                  float((cf.amax(1) > 2.0).float().mean()))
+        errs["foot_pos"] = (float(fp.max()),
+                            float((fp.amax(1) > 1e-3).float().mean()))
+        print(f"engine (b) {name}: card tengine step vs 4 card N-major "
+              f"substeps (solver_iters 30), {NUM_ENVS} envs: [max_abs_err, "
+              f"share of envs beyond the cross-parity tolerance] "
+              + json.dumps(errs))
+        if name == "spawn":
+            bad_b += [f"spawn {k}" for k, v in errs.items() if v[1] > 0]
+            continue
+        with torch.no_grad():
+            c_t, _, c_r, _ = both(cpu_phys, cpu_bsub, head(st.dyn),
+                                  head(st.sim), "cpu")
+        gap_err = {f: float(((getattr(s_t, f)[:n] - getattr(s_r, f)[:n])
+                             .cpu() - (getattr(c_t, f) - getattr(c_r, f)))
+                            .abs().max()) for f in SUBSTEP_TOL}
+        print(f"engine (b) landed: the engines' difference on the card vs "
+              f"on the CPU, first {n} envs: max_abs_err "
+              + json.dumps(gap_err))
+        bad_b += [f"landed gap {f}" for f, e in gap_err.items()
+                  if e > SUBSTEP_TOL[f]]
+
+    # times: the N-major substep and tengine's production step
+    dyn, sim = landed.dyn, landed.sim
+    tau = torch.zeros((NUM_ENVS, 12), device="cuda")
+    kp, kd = (torch.full((NUM_ENVS, 12), v, device="cuda") for v in (20.0, 0.5))
+    targets = env.default_dof_pos.expand(4, NUM_ENVS, 12)
+    ones, zeros = torch.ones_like(kd), torch.zeros_like(kd)
+    with torch.no_grad():
+        e_ms, e_launch, e_busy = profiled(lambda: card_step(dyn, sim, tau, kd))
+        t_ms, t_launch, t_busy = profiled(lambda: env.physics_step(
+            dyn, sim, targets, kp, kd, ones, zeros))
+    print(f"engine timing, {NUM_ENVS} envs, landed states: N-major substep "
+          f"(solver_iters {params.solver_iters}) {e_ms:.3f} ms host, "
+          f"{e_launch} launches, {e_busy:.3f} ms device busy; tengine "
+          f"physics step (4 substeps + 1 patch extraction) {t_ms:.3f} ms "
+          f"host, {t_launch} launches, {t_busy:.3f} ms device busy = per "
+          f"substep {t_ms / 4:.3f} ms host, {t_launch / 4:.1f} launches, "
+          f"{t_busy / 4:.3f} ms busy")
+    if bad_a or bad_b:
+        raise AssertionError(f"engine: (a) {bad_a} (b) {bad_b}")
+
+
+def phase_graft():
+    """entry() on the card vs the CPU, and the NCCL dry run (see the module
+    docstring). Returns the ranks' patch launches, summed."""
+    import torch
+    from go2_rl_gym_tpu_torch import graft_entry
+
+    forward, (model, obs, hist) = graft_entry.entry()
+    _, (cpu_model, _, _) = graft_entry.entry(device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    g = torch.Generator().manual_seed(0)
+    o = torch.randn(obs.shape, generator=g)
+    h = torch.randn(hist.shape, generator=g)
+    mu = forward(model, o.cuda(), h.cuda())
+    err = float((mu.cpu() - forward(cpu_model, o, h)).abs().max())
+    fwd_ms = cuda_ms(lambda: forward(model, obs, hist))
+    print(f"graft entry: moe_cts student forward at batch {obs.shape[0]}, "
+          f"card vs CPU max_abs_err {err:.3e} (tol 1e-5); {fwd_ms:.4f} ms "
+          f"on the card (CUDA events)")
+    if not err <= 1e-5:
+        raise AssertionError("graft entry: card and CPU disagree")
+    world = torch.cuda.device_count()
+    t = time.perf_counter()
+    res = graft_entry.dryrun_multichip(world)
+    launches = [r["launches"]["extract_patches"] for r in res]
+    print(f"graft dryrun: nccl world {world}, "
+          f"{max(8 * world, 16) // world} envs per rank, 2 x 9 terrain, "
+          f"{graft_entry.DRYRUN_STEPS} steps, {time.perf_counter() - t:.1f} "
+          f"s with start-up; patch launches per rank {launches}; metrics "
+          + json.dumps({k: round(float(res[0]["metrics"][k]), 6) for k in
+                        ("value_loss", "surrogate_loss", "latent_loss")}))
+    if launches != [graft_entry.DRYRUN_STEPS] * world:
+        raise AssertionError(f"graft dryrun: patch launches {launches}")
+    return {"extract_patches": sum(launches)}
+
+
 def main():
     sys.path.insert(0, ROOT)
     try:
@@ -837,7 +1068,9 @@ def main():
                lambda: phase_train("go2_fast_flat_move", iterations=1)),
               ("export + eval", lambda: phase_export_eval(shared)),
               ("play checkpoint", lambda: phase_play_checkpoint(shared)),
-              ("train ddp", phase_train_ddp)]
+              ("train ddp", phase_train_ddp),
+              ("engine", phase_engine),
+              ("graft", phase_graft)]
     launches = {}
     for name, fn in phases:
         t = time.perf_counter()

@@ -29,9 +29,14 @@ torch.distributed.run's environment. JOB.pt (torch.save) holds {"jobs":
   and the result says whether every tensor and generator came back equal;
   with "profile" one more iteration runs with torch.profiler on from the
   rollout's end (GAE, update, metrics: every collective of it).
+* "dryrun": the graft dry run (graft_entry.dryrun_multichip): the runner
+  of the job's config, `init_runner_state(0)` and one `train_step`; the
+  result holds the metrics, the patch kernel's launches in the step and
+  whether every metric is finite.
 
 A job's config is the task's with `num_envs` global envs, `steps` per
 iteration, `terrain` "parity" (card_check.parity_cfg's 3 x 9 sub-terrains),
+"dryrun" (2 x 9 sub-terrains, a 2 m border: __graft_entry__.py:50-53),
 "plane" or "flagship", and `randomness` False for DR, pushes, the action
 delay and observation noise off, `curriculum` True for the command
 curriculum on. The tests (tests/test_torch_distributed.py) and chip_smoke.py
@@ -62,6 +67,10 @@ def job_cfgs(job):
     terrain = job.get("terrain", "flagship")
     if terrain == "parity":
         card_check.parity_cfg(env_cfg, job["num_envs"])
+    elif terrain == "dryrun":
+        env_cfg.terrain.num_rows = 2
+        env_cfg.terrain.num_cols = 9
+        env_cfg.terrain.border_size = 2.0
     elif terrain == "plane":
         env_cfg.terrain.mesh_type = "plane"
         env_cfg.terrain.measure_heights = False
@@ -252,6 +261,20 @@ def run_train(job, device, mesh=None):
             "obs_finite": bool(torch.isfinite(rs.obs).all())}
 
 
+def run_dryrun(job, device, mesh=None):
+    runner = build(job, device, mesh)
+    rs = runner.init_runner_state(0)
+    for k in terrain_patches.LAUNCHES:
+        terrain_patches.LAUNCHES[k] = 0
+    rs, m = runner.train_step(rs)
+    if runner.device.type == "cuda":
+        torch.cuda.synchronize(runner.device)
+    metrics = {k: v.detach().cpu() for k, v in m.items()}
+    return {"metrics": metrics, "launches": dict(terrain_patches.LAUNCHES),
+            "finite": all(bool(torch.isfinite(v).all())
+                          for v in metrics.values())}
+
+
 def _profile_iteration(runner, rs, sync):
     """One more train iteration with torch.profiler on from the rollout's
     end (GAE, the update and the metrics: every collective of the
@@ -290,7 +313,7 @@ def _profile_iteration(runner, rs, sync):
 
 
 JOBS = {"step": run_step, "curriculum": run_curriculum,
-        "resume": run_resume, "train": run_train}
+        "resume": run_resume, "train": run_train, "dryrun": run_dryrun}
 
 
 def get_args(argv=None):

@@ -169,14 +169,31 @@ def barrier(mesh: Optional[Mesh]):
         float(all_reduce(mesh, [torch.ones((), device=mesh.device)])[0])
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the ranks; the backward sums the ranks' incoming
+    gradients (the gradient of each rank's input is every rank's gradient
+    of the common result)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = x.contiguous().clone()
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.contiguous().clone()
+        dist.all_reduce(g)
+        return g
+
+
 def all_reduce_autograd(mesh: Optional[Mesh], x: torch.Tensor):
     """`x` summed over the ranks inside autograd: the backward sums the
     ranks' gradients of the result, so a loss term that every rank computes
     from the sum must enter each rank's loss divided by the world size."""
     if mesh is None:
         return x
-    from torch.distributed.nn import functional as dist_fn
-    return dist_fn.all_reduce(x)
+    return _AllReduceSum.apply(x)
 
 
 def broadcast_(mesh: Optional[Mesh], tensors: Sequence[torch.Tensor],

@@ -31,6 +31,7 @@ from go2_rl_gym_tpu_torch.device import resolve_device
 from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.env import rewards as reward_lib
 from go2_rl_gym_tpu_torch.env.config import Go2Cfg
+from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
 from go2_rl_gym_tpu_torch.sim import engine, tengine
 from go2_rl_gym_tpu_torch.sim.model import RobotModel, go2_model
 from go2_rl_gym_tpu_torch.terrain import generator
@@ -102,11 +103,14 @@ class Go2Env:
 
     `device` defaults to the card; without one it raises (pass
     device="cpu" to run on the CPU). With a `mesh` the env is that rank's
-    shard of the cfg.env.num_envs envs (`attach_mesh`)."""
+    shard of the cfg.env.num_envs envs (`attach_mesh`). `riser_threshold`
+    is the heightfield's riser snap (ops/terrain_patches.build_channels);
+    inf turns it off."""
 
     def __init__(self, cfg: Go2Cfg, model: Optional[RobotModel] = None,
                  num_steps_per_env: int = 24, terrain_seed: int = 0,
-                 device="cuda", mesh: Optional[mesh_lib.Mesh] = None):
+                 device="cuda", mesh: Optional[mesh_lib.Mesh] = None,
+                 riser_threshold: float = tp.RISER_SLOPE_THRESHOLD):
         self.device = resolve_device(device)
         dev = self.device
         self.cfg = cfg
@@ -133,7 +137,8 @@ class Go2Env:
             self.grid = generator.build_terrain(cfg.terrain, seed=terrain_seed)
             self.terrain = engine.make_terrain_data(
                 self.grid.heights_m, self.grid.horizontal_scale,
-                self.grid.border_size, device=dev)
+                self.grid.border_size, device=dev,
+                riser_threshold=riser_threshold)
             self.terrain_origins = f32(self.grid.env_origins)
             # empty in randomized mode -> per-terrain caps/ids disabled
             # (reference legged_robot.py:863-870, 1074-1075)

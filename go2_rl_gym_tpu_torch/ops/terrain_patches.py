@@ -47,11 +47,14 @@ def _pad_to(n, m):
     return ((n + m - 1) // m) * m
 
 
-def build_channels(height_m: np.ndarray, horizontal_scale: float) -> np.ndarray:
+def build_channels(height_m: np.ndarray, horizontal_scale: float,
+                   riser_threshold: float = RISER_SLOPE_THRESHOLD
+                   ) -> np.ndarray:
     """(R, C) heights -> channel-major (3, C', R') [hmin, dx, dy] grid.
 
     Bit-exact with the JAX package's build_channels (numpy, same operations
-    in the same order)."""
+    in the same order) at the default `riser_threshold`; the JAX package
+    reads its module global instead, and inf turns the snap off."""
     h = np.asarray(height_m, np.float32)
     hx = np.roll(h, -1, axis=0)
     hx[-1] = h[-1]
@@ -67,9 +70,9 @@ def build_channels(height_m: np.ndarray, horizontal_scale: float) -> np.ndarray:
     ddx = np.abs(np.diff(pad, axis=0)) / horizontal_scale    # (R+1, C+2)
     ddy = np.abs(np.diff(pad, axis=1)) / horizontal_scale    # (R+2, C+1)
     riser = ((np.maximum(ddx[:-1, 1:-1], ddx[1:, 1:-1])
-              > RISER_SLOPE_THRESHOLD)
+              > riser_threshold)
              | (np.maximum(ddy[1:-1, :-1], ddy[1:-1, 1:])
-                > RISER_SLOPE_THRESHOLD))
+                > riser_threshold))
     dx = np.where(riser, 0.0, dx).astype(np.float32)
     dy = np.where(riser, 0.0, dy).astype(np.float32)
     ch = np.ascontiguousarray(np.stack([hmin, dx, dy], axis=0)

@@ -25,7 +25,7 @@ from go2_rl_gym_tpu_torch.sim.engine import (DEPTH, NLEG, DynParams,
                                              QuadLayout, SimOutputs,
                                              SimParams, SimState, TerrainData,
                                              height_at, normal_at,
-                                             quad_layout)
+                                             quad_layout, top_k)
 from go2_rl_gym_tpu_torch.sim.model import RobotModel
 
 
@@ -372,10 +372,9 @@ def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
     else:
         h = _terrain_height_t(terrain, gpos[:, 0, :], gpos[:, 1, :])   # (G,N)
     gap = gpos[:, 2, :] - st.geom_radius - h
-    # top-K of -gap per env: a stable descending sort breaks ties toward the
-    # lower geom index, as jax.lax.top_k does (feet at equal height tie)
-    neg_gap, cidx = torch.sort((-gap).T, dim=1, descending=True, stable=True)
-    neg_gap, cidx = neg_gap[:, :K], cidx[:, :K]          # (N,K) both
+    # top-K of -gap per env, ties to the lower geom index (feet at equal
+    # height tie)
+    neg_gap, cidx = top_k((-gap).T, K)                   # (N,K) both
     cidxT = cidx.T                                       # (K,N)
 
     # contact selection: gather the K chosen geoms' channels

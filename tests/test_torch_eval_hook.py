@@ -134,14 +134,17 @@ def test_learn_scores_exports_and_logs_eval(tmp_path):
 
 class Fake:
     """An evaluator that scores every submission at once with its
-    iteration, without a process; a submission takes `delay` seconds."""
+    iteration, without a process; a submission advances `clock` (if given)
+    by `delay` seconds instead of sleeping."""
 
-    def __init__(self, delay=0.0):
-        self.submitted, self.pending, self.delay = [], {}, delay
+    def __init__(self, delay=0.0, clock=None):
+        self.submitted, self.pending = [], {}
+        self.delay, self.clock = delay, clock
 
     def submit(self, path, it):
         assert os.path.exists(path)
-        time.sleep(self.delay)
+        if self.clock is not None:
+            self.clock.offset += self.delay
         self.submitted.append(it)
         self.pending[it] = {"overall": it / 10.0, "scene": "flat"}
 
@@ -154,22 +157,44 @@ class Fake:
         return self.poll()
 
 
-def test_learn_eval_cadence_and_timing(tmp_path):
+class Clock:
+    """Stands in for the `time` module that train/runner.py reads: the
+    host's clock plus `offset` seconds, which a submission advances."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def time(self):
+        return time.time() + self.offset
+
+
+# a submission "takes" this long on the runner's clock; an iteration on the
+# CPU takes seconds, so an iteration time under it cannot hold a submission
+SUBMIT_S = 1000.0
+
+
+def test_learn_eval_cadence_and_timing(tmp_path, monkeypatch):
+    from go2_rl_gym_tpu_torch.train import runner as runner_mod
     log_dir = str(tmp_path)
     runner = _plane_runner(go2_moe_cts_train_cfg(), log_dir, 2)
-    runner.evaluator = Fake(delay=2.0)
+    clock = Clock()
+    monkeypatch.setattr(runner_mod, "time", clock)
+    runner.evaluator = Fake(delay=SUBMIT_S, clock=clock)
     runner.learn(runner.init_runner_state(0), 3, log_every=1)
     assert runner.evaluator.submitted == [0, 2, 3]
+    assert clock.offset == 3 * SUBMIT_S
     assert _exports(log_dir) == [0, 2, 3]
     rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
     evals = sorted((r["step"], r["value"]) for r in rows
                    if r["tag"] == "Eval/overall")
     assert evals == [(0, 0.0), (2, 0.2), (3, 0.3)]
     assert not any(r["tag"] == "Eval/scene" for r in rows)
-    # iteration 1 starts its clock after the export and submission at 0
+    # iteration 1 starts its clock after the export and submission at 0,
+    # and no iteration's time holds a submission
     times = {r["step"]: r["value"] for r in rows
              if r["tag"] == "Perf/iteration_time"}
-    assert times[1] < 2.0, times
+    assert sorted(times) == [0, 1, 2]
+    assert all(t < SUBMIT_S for t in times.values()), times
     assert all(np.isfinite(r["value"]) for r in rows)
 
 

@@ -38,6 +38,12 @@ def test_guard_sees_the_port():
     files = _port_files()
     assert len(files) > 15
     assert any(f.endswith(os.path.join("sim", "tengine.py")) for f in files)
+    # the twins of files outside the JAX package (__graft_entry__.py,
+    # tools/) are held to the rule too
+    for rel in ("graft_entry.py", "tools/dynamics_parity.py",
+                "tools/stairs_probe.py", "tools/diagnose_learning.py",
+                "sim/engine.py"):
+        assert os.path.join(PORT, *rel.split("/")) in files, rel
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -71,6 +77,15 @@ def test_entry_points_default_to_the_card():
                VecEnvAdapter.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     assert train.get_args([]).device == "cuda"
+    from go2_rl_gym_tpu_torch import graft_entry
+    from go2_rl_gym_tpu_torch.sim.engine import make_batched_substep
+    from go2_rl_gym_tpu_torch.tools import (diagnose_learning,
+                                            dynamics_parity, stairs_probe)
+    for fn in (graft_entry.entry, graft_entry.dryrun_multichip,
+               make_batched_substep, dynamics_parity.run_parity,
+               dynamics_parity.write_report, stairs_probe.build_env,
+               diagnose_learning.make_env):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     # train_step and learn run on the runner's device, the card by default
     assert "device" not in inspect.signature(OnPolicyRunner.train_step).parameters
     assert "device" not in inspect.signature(OnPolicyRunner.learn).parameters
@@ -112,3 +127,25 @@ def test_export_and_deploy_entry_points_raise_without_a_card(monkeypatch):
                         lambda *args: seen.setdefault("args", args))
     play.main(["--task", "go2_moe_cts"])
     assert seen["args"][-1] == "cuda"
+
+
+def test_slice_six_entry_points_raise_without_a_card():
+    """The N-major engine, the graft entry and the tools refuse to fall
+    back to the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device works")
+    from go2_rl_gym_tpu_torch import graft_entry
+    from go2_rl_gym_tpu_torch.sim import engine
+    from go2_rl_gym_tpu_torch.sim.model import go2_model
+    from go2_rl_gym_tpu_torch.tools import (diagnose_learning,
+                                            dynamics_parity, stairs_probe)
+    for call in (lambda: graft_entry.entry(),
+                 lambda: graft_entry.dryrun_multichip(1),
+                 lambda: engine.make_batched_substep(
+                     go2_model(), engine.SimParams(), engine.flat_terrain()),
+                 lambda: dynamics_parity.main(["--steps", "2"]),
+                 lambda: stairs_probe.main(["--steps", "1", "--levels", "2"]),
+                 lambda: diagnose_learning.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
