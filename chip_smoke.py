@@ -96,16 +96,30 @@ Phases (any failure exits non-zero and prints no result line):
    single-substep tolerances. Prints ms per substep (host clock with a
    synchronize), kernel launches and device-busy ms per substep
    (torch.profiler), and the same for tengine's production physics step.
-13. Graft (go2_rl_gym_tpu_torch/graft_entry.py): entry()'s forward (the
+13. Profile (go2_rl_gym_tpu_torch/tools/profile_rollout.py, the twins of
+   tools/profile_physics.py and tools/bench_decompose.py), at 4096 envs on
+   the flagship terrain: the op tables of the modes physics (tengine's
+   physics step), substep (one N-major substep) and env (env.step), 3
+   traced calls each, top 10 rows printed; then the stage decomposition
+   physics / env / rollout / train (10 timed calls each for physics and
+   env, 2 for rollout and train). Each table's total self device time must
+   lie within 1% of the profiler's kernel sum in the same trace; in physics
+   and env at least 90% of it must carry a source line of the port, and
+   the extract_patches row must show 1 launch per call; substep must
+   launch the patch kernel 0 times; every stage time must be finite and
+   positive. The phase's patch launches are counted (reset before the
+   phase, read after it).
+14. Graft (go2_rl_gym_tpu_torch/graft_entry.py): entry()'s forward (the
    go2_moe_cts student at batch 256) on the card against the CPU on the
    same weights and seeded inputs within 1e-5; dryrun_multichip over
    torch.cuda.device_count() NCCL ranks (world 1 on one card): finite
    metrics, 4 patch launches per rank (one per policy step).
-14. Print one JSON line listing every kernel, then the device line.
+15. Print one JSON line listing every kernel, then the device line.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import signal
 import socket
@@ -132,6 +146,9 @@ SUBSTEP_TOL = dict(base_pos=1e-5, base_quat=1e-5, q=1e-5, base_lin_vel=1e-4,
                    base_ang_vel=1e-4, qd=1e-4)
 # tengine vs the N-major engine (tests/test_tengine.py:68-82)
 CROSS_TOL = dict(base_pos=2e-4, q=2e-3, qd=0.1, base_quat=2e-4)
+PROFILE_ITERS = 3               # traced calls per op table
+PROFILE_TOP = 10                # rows printed per op table
+DECOMPOSE_ITERS = {"rollout": 2, "train": 2}    # physics and env: 10
 
 
 def fail(msg):
@@ -820,29 +837,6 @@ def phase_play_checkpoint(shared, device="cuda"):
     return counts
 
 
-def profiled(fn, reps=5):
-    """(host ms per call, kernel launches per call, device-busy ms per call):
-    the host clock over `reps` calls ended by a synchronize, after one
-    warm-up call; then one call under torch.profiler."""
-    import torch
-    from go2_rl_gym_tpu_torch.tools.profile_rollout import _device_us, _kernels
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t) * 1e3 / reps
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = _kernels(prof)
-    return (host_ms, sum(e.count for e in kernels),
-            sum(_device_us(e) for e in kernels) / 1e3)
-
-
 def _worst(got, want, tol, fields):
     """Per field: (max abs error, share of envs beyond `tol`)."""
     out = {}
@@ -861,6 +855,7 @@ def phase_engine():
     from go2_rl_gym_tpu_torch.env.config import Go2Cfg
     from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
     from go2_rl_gym_tpu_torch.sim import engine, tengine
+    from go2_rl_gym_tpu_torch.tools.profile_rollout import profiled
 
     cfg = Go2Cfg()
     cfg.env.num_envs = NUM_ENVS
@@ -985,6 +980,59 @@ def phase_engine():
         raise AssertionError(f"engine: (a) {bad_a} (b) {bad_b}")
 
 
+def phase_profile():
+    """The op tables and the stage decomposition of
+    go2_rl_gym_tpu_torch/tools/profile_rollout.py (see the module
+    docstring). Returns the phase's patch launches."""
+    from go2_rl_gym_tpu_torch.tools import profile_rollout as pr
+
+    reset_launch_counts()
+    setup = None
+    bad = []
+    for mode in ("physics", "substep", "env"):
+        setup = pr.build(mode, NUM_ENVS, "cuda", like=setup)
+        res = pr.op_table(setup, iters=PROFILE_ITERS, top=PROFILE_TOP)
+        rows = res["rows"]
+        patch = [r for r in rows if r["name"] == "extract_patches"]
+        print(f"profile {mode}: {res['total_ms']:.3f} ms of self device time "
+              f"per call, profiler kernel sum {res['kernel_ms']:.3f} ms, "
+              f"{res['attributed_share']:.4f} of it with a port source line, "
+              f"{res['launches_per_call']:.1f} launches per call, "
+              f"{len(rows)} rows; patch kernel launches "
+              f"{res['patch_kernel_launches']}, its rows "
+              + json.dumps(patch) + f"; traced in {res['trace_s']:.1f} s, "
+              f"reduced in {res['reduce_s']:.1f} s")
+        for by, key in (("file", lambda r: r["source"].split(":")[0]),
+                        ("op", lambda r: r["name"])):
+            share = {}
+            for r in rows:
+                share[key(r)] = share.get(key(r), 0.0) + r["pct"]
+            top = sorted(share.items(), key=lambda kv: -kv[1])[:6]
+            print(f"profile {mode}: percent by {by} "
+                  + json.dumps({k: round(v, 2) for k, v in top}))
+        if not abs(res["total_ms"] - res["kernel_ms"]) <= 0.01 * res[
+                "kernel_ms"]:
+            bad.append(f"{mode}: table total {res['total_ms']} ms vs kernel "
+                       f"sum {res['kernel_ms']} ms")
+        if mode == "substep":
+            if res["patch_kernel_launches"] or patch:
+                bad.append("substep launched the patch kernel")
+            continue
+        if res["attributed_share"] < 0.9:
+            bad.append(f"{mode}: {res['attributed_share']} attributed")
+        if [(r["calls"], r["launches"]) for r in patch] != [(1.0, 1.0)] or (
+                res["patch_kernel_launches"] != PROFILE_ITERS):
+            bad.append(f"{mode}: extract_patches rows {patch}")
+    dec = pr.decompose(["physics", "env", "rollout", "train"], NUM_ENVS,
+                       "cuda", iters=DECOMPOSE_ITERS, like=setup)
+    print("profile decompose: " + json.dumps(dec))
+    bad += [f"decompose {k}: {v['ms']} ms" for k, v in dec["decompose"].items()
+            if not (math.isfinite(v["ms"]) and v["ms"] > 0)]
+    if bad:
+        raise AssertionError(f"profile: {bad}")
+    return launch_counts()
+
+
 def phase_graft():
     """entry() on the card vs the CPU, and the NCCL dry run (see the module
     docstring). Returns the ranks' patch launches, summed."""
@@ -1070,6 +1118,7 @@ def main():
               ("play checkpoint", lambda: phase_play_checkpoint(shared)),
               ("train ddp", phase_train_ddp),
               ("engine", phase_engine),
+              ("profile", phase_profile),
               ("graft", phase_graft)]
     launches = {}
     for name, fn in phases:

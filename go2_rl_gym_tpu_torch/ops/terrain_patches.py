@@ -16,6 +16,7 @@ version on a CPU tensor; there is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -160,7 +161,13 @@ def extract_patches_cuda(channels: torch.Tensor,
     N = origins.shape[0]
     out = torch.empty((N, 3, PATCH * PATCH), dtype=torch.float32,
                       device=channels.device)
-    with torch.cuda.device(channels.device):
+    # under torch.profiler a range marks the ctypes launch, which no op of
+    # torch makes; entered unconditionally, it would cost each launch
+    # several microseconds of host time with the profiler off
+    profiled = torch.autograd._profiler_enabled()
+    with torch.cuda.device(channels.device), (
+            torch.profiler.record_function("extract_patches") if profiled
+            else contextlib.nullcontext()):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launch_fn()(channels.data_ptr(), origins.data_ptr(),
                            out.data_ptr(), N, C, R, stream)
@@ -176,7 +183,12 @@ def extract_patches(channels: torch.Tensor,
     """(3, C, R), (N, 2) -> (N, 3, PATCH*PATCH) patch windows.
 
     The CUDA kernel on a CUDA tensor (it raises on what it cannot take); the
-    plain version only for a tensor on the CPU."""
+    plain version only for a tensor on the CPU. Overridable as a torch
+    function, so that a TorchFunctionMode sees where it is called from
+    (tools/profile_rollout.py `SourceLines`)."""
+    if torch.overrides.has_torch_function((channels, origins)):
+        return torch.overrides.handle_torch_function(
+            extract_patches, (channels, origins), channels, origins)
     if channels.is_cuda:
         return extract_patches_cuda(channels, origins)
     return extract_patches_plain(channels, origins)

@@ -1,8 +1,12 @@
-"""Where the time of one rollout step goes, on the card.
+"""Where the port's time goes on the card: by layer, by op and by stage.
 
-Builds a task's env and runner through the registry (`--task`, the flagship
-go2_moe_cts on the full rough terrain by default; `go2` and `go2_lstm` run
-on the same terrain) at 4096 envs, warms up, then:
+Four modes. The first two split a rollout step or a train iteration of a
+task into its layers; `--ops` and `--decompose` are the port's twins of
+the JAX package's `tools/profile_physics.py` and `tools/bench_decompose.py`.
+
+The default builds a task's env and runner through the registry (`--task`,
+the flagship go2_moe_cts on the full rough terrain by default; `go2` and
+`go2_lstm` run on the same terrain), warms up, then:
 
 1. times one policy step's parts with CUDA events, each alone and back to
    back: the algorithm's act, the physics step (env.physics_step: patch
@@ -29,22 +33,91 @@ untimed iteration):
    update's launches and its device busy share (busy time over the
    update's wall time).
 
-Prints one JSON object as its last line.
+`--ops` and `--decompose` build what the JAX tools build (`build`): Go2Cfg()
+at `--num_envs` envs (default: the BENCH_NUM_ENVS variable, else 4096),
+go2_moe_cts_train_cfg(), Go2Env with the runner's steps per env, the state
+of init_state(0), and per mode:
+
+- `physics`: env.physics_step from that state with zero targets (4, N,
+  12), kp 20, kd 0.5, motor strength 1 and offset 0;
+- `env`: env.step from that state with zero actions;
+- `rollout` / `train`: OnPolicyRunner(env, tc, log_dir=None) from
+  init_runner_state(0, init_at_random_ep_len=True), then runner.rollout /
+  runner.train_step;
+- `substep` (the port's own): one substep of the N-major reference engine
+  (sim/engine.py make_batched_substep) on the global heightfield from that
+  state, zero torque, implicit damping 0.5, beside tengine's `physics`.
+
+With `--ops MODE` (twin of tools/profile_physics.py), one warm-up call,
+then `--iters` calls (3; 1 for train) under torch.profiler. Every op that
+launched device work gets its self device time: each kernel counts once,
+at the op around its launch call, so nothing nested is counted twice
+(aten::einsum -> aten::bmm -> kernel counts at aten::bmm). Each op is
+attributed to the innermost frame in a file of this package that called into torch, e.g.
+`sim/tengine.py:412`: `SourceLines` names a profiler range after that
+line around every torch call. torch.profiler's `with_stack` does not serve
+here: its frames name a Python function by the line of its def, not of
+the call, and their order differs between torch versions. Ops of a
+backward pass take the line of the forward op that recorded them. The
+patch kernel, launched through ctypes and not by an op of torch, counts
+at its own range (`extract_patches`). Prints the JAX tool's header and rows (ms per call,
+percent, op, source), then one JSON line: the rows, the total, the share
+of it with a source line, the sum of the profiler's kernel times, the
+kernel launches per call, the patch kernel's launches, the trace's and
+its reduction's seconds. With `--device cpu` there is no device activity:
+the table then ranks self CPU time, and the JSON says so
+(`"time": "host"`).
+
+With `--decompose [physics env rollout train]` (twin of
+tools/bench_decompose.py; default `env physics`), each stage runs once
+untimed, then `--iters` calls (10; 5 for rollout and train) on the host
+clock, closed by torch.cuda.synchronize() on the card: ms per call and
+env-steps/s (T * N for rollout and train). The JAX tool builds a rollout
+but times nothing under that name; here the rollout is a line of its own,
+as it takes most of the train iteration.
+
+Every mode prints one JSON object as its last line. `--device` defaults to
+the card and raises without one (`--ops` and `--decompose` run on the CPU
+with `--device cpu`).
 
 Usage:
     python -m go2_rl_gym_tpu_torch.tools.profile_rollout [--task go2_moe_cts]
         [--num_envs 4096] [--steps 3] [--train]
+    python -m go2_rl_gym_tpu_torch.tools.profile_rollout
+        --ops {physics,env,train,substep} [--iters 3] [--top 40]
+        [--num_envs 4096] [--device cuda]
+    python -m go2_rl_gym_tpu_torch.tools.profile_rollout
+        --decompose [physics env rollout train] [--iters 10]
+        [--num_envs 4096] [--device cuda]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import sys
 import time
+from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.overrides import TorchFunctionMode
 
+from go2_rl_gym_tpu_torch.device import resolve_device
+from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
+from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
+from go2_rl_gym_tpu_torch.sim import engine
+from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
 from go2_rl_gym_tpu_torch.utils import registry
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODES = ("physics", "env", "rollout", "train", "substep")
+OPS_MODES = ("physics", "env", "train", "substep")
+STAGES = ("physics", "env", "rollout", "train")
+# the JAX tools' lines, in their order
+STAGE_LINES = {"physics": "physics 4-substep:  ", "env": "full env.step:      ",
+               "rollout": "rollout:            ",
+               "train": "full train step:    "}
 
 
 def _event_ms(fn, iters):
@@ -67,8 +140,320 @@ def _device_us(evt):
 
 
 def _kernels(prof):
+    """The kernels of a trace, averaged by name (the device-side copies of
+    profiler ranges, such as the patch kernel's, are not kernels)."""
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_ms(fn, iters, device=torch.device("cuda")):
+    """Host ms per call of fn() over `iters` calls after one untimed call,
+    closed by a synchronize on the card (tools/bench_decompose.py
+    `timeit`)."""
+    fn()
+    _sync(device)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    _sync(device)
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def profiled(fn, reps=5):
+    """(host ms per call, kernel launches per call, device-busy ms per call)
+    on the card: the host clock over `reps` calls ended by a synchronize,
+    after one warm-up call; then one call under torch.profiler."""
+    ms = host_ms(fn, reps)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = _kernels(prof)
+    return (ms, sum(e.count for e in kernels),
+            sum(_device_us(e) for e in kernels) / 1e3)
+
+
+def default_num_envs():
+    return int(os.environ.get("BENCH_NUM_ENVS", 4096))
+
+
+class Setup(NamedTuple):
+    """What `build` made: `fn(*args)` is one call of the mode."""
+    mode: str
+    fn: Callable
+    args: tuple
+    env: Go2Env
+    tc: object                  # the TrainCfg
+    state: object               # the EnvState of init_state(0)
+    runner: Optional[OnPolicyRunner] = None
+    rs: object = None           # the RunnerState the runner starts from
+
+
+def build(mode, num_envs=None, device="cuda", cfg=None,
+          like: Optional[Setup] = None) -> Setup:
+    """The setup of the JAX tools' `mode` (see the module docstring).
+
+    `cfg` replaces Go2Cfg() (the tests pass a smaller terrain); `num_envs`
+    (default: BENCH_NUM_ENVS, else 4096) sets its env count. `like`, a
+    Setup built before, lends its env, state and runner, so that several
+    modes share one terrain."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if like is None:
+        if cfg is None:
+            cfg = Go2Cfg()
+            cfg.env.num_envs = num_envs or default_num_envs()
+        elif num_envs:
+            cfg.env.num_envs = num_envs
+        tc = go2_moe_cts_train_cfg()
+        env = Go2Env(cfg, num_steps_per_env=tc.runner.num_steps_per_env,
+                     device=device)
+        like = Setup(mode, None, (), env, tc, env.init_state(0))
+    env, state = like.env, like.state
+    N, dev = env.num_envs, env.device
+    zeros = torch.zeros((N, 12), device=dev)
+    if mode == "physics":
+        targets = torch.zeros((env.cfg.control.decimation, N, 12), device=dev)
+        kp = torch.full((N, 12), 20.0, device=dev)
+        kd = torch.full((N, 12), 0.5, device=dev)
+        ones = torch.ones((N, 12), device=dev)
+        fn = torch.no_grad()(lambda d, s: env.physics_step(
+            d, s, targets, kp, kd, ones, zeros))
+        return like._replace(mode=mode, fn=fn, args=(state.dyn, state.sim))
+    if mode == "env":
+        return like._replace(mode=mode, fn=torch.no_grad()(env.step),
+                             args=(state, zeros))
+    if mode == "substep":
+        step = engine.make_batched_substep(
+            env.model, env.sim_params, env.terrain._replace(channels=None),
+            device=dev)
+        kd = torch.full((N, 12), 0.5, device=dev)
+        fn = torch.no_grad()(lambda d, s: step(d, s, zeros, kd))
+        return like._replace(mode=mode, fn=fn, args=(state.dyn, state.sim))
+    runner, rs = like.runner, like.rs
+    if runner is None:
+        runner = OnPolicyRunner(env, like.tc, log_dir=None, device=dev)
+        rs = runner.init_runner_state(0, init_at_random_ep_len=True)
+    fn = runner.rollout if mode == "rollout" else runner.train_step
+    return like._replace(mode=mode, fn=fn, args=(rs,), runner=runner, rs=rs)
+
+
+def _package_path(filename):
+    """`filename` relative to this package, or None for a file outside it
+    and for this tool."""
+    path = os.path.abspath(filename)
+    if path == os.path.abspath(__file__) or not path.startswith(
+            PACKAGE_DIR + os.sep):
+        return None
+    return os.path.relpath(path, PACKAGE_DIR)
+
+
+class SourceLines(TorchFunctionMode):
+    """Runs every torch call made from Python inside a profiler range named
+    after the innermost frame in a file of this package, as
+    "sim/tengine.py:412" (the calls that torch makes inside one are not
+    seen again). A function of this package that dispatches itself as a
+    torch function (ops/terrain_patches.py `extract_patches`) is named after
+    its caller. `names` holds every name given."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+        self._paths = {}
+
+    def _where(self, func):
+        f = sys._getframe(2)
+        code = getattr(func, "__code__", None)
+        while f is not None:
+            name = f.f_code.co_filename
+            if f.f_code is code:        # a function of this package that
+                f = f.f_back            # dispatched itself as a torch one
+                continue
+            if name not in self._paths:
+                self._paths[name] = _package_path(name)
+            if self._paths[name]:
+                return f"{self._paths[name]}:{f.f_lineno}"
+            f = f.f_back
+        return None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        # attribute reads (tensor.shape) launch nothing
+        where = (None if getattr(func, "__name__", "") == "__get__"
+                 else self._where(func))
+        if where is None:
+            return func(*args, **kwargs)
+        self.names.add(where)
+        with torch.profiler.record_function(where):
+            return func(*args, **kwargs)
+
+
+_BACKWARD = 1       # RecordScope.BACKWARD_FUNCTION
+
+
+def _attribute(events, names):
+    """id(event) -> its source: the nearest enclosing range of `names`; for
+    an op of a backward pass, the source of the forward op that recorded
+    the backward function, with " (backward)"; "" where there is none."""
+    near = {}
+
+    def nearest(e):
+        chain = []
+        while e is not None and id(e) not in near:
+            chain.append(e)
+            if e.name in names or e.scope == _BACKWARD:
+                near[id(e)] = e
+                break
+            e = e.cpu_parent
+        found = near.get(id(e)) if e is not None else None
+        for c in chain:
+            near[id(c)] = found
+        return found
+
+    fwd = {}
+    for e in events:
+        n = nearest(e)
+        if n is not None and n.name in names and e.sequence_nr >= 0:
+            fwd.setdefault((e.sequence_nr, e.thread), n.name)
+    src = {}
+    for e in events:
+        n = nearest(e)
+        if n is None:
+            src[id(e)] = ""
+        elif n.name in names:
+            src[id(e)] = n.name
+        else:
+            key = (n.sequence_nr, n.fwd_thread)
+            src[id(e)] = fwd[key] + " (backward)" if key in fwd else ""
+    return src
+
+
+def op_rows(events, names, device_time):
+    """Rows of self time by (op, source): {(op, source): [us, ops,
+    launches]}, and the profiler's kernel time and count.
+
+    Device time: every kernel (or copy) of the trace at the op that
+    launched it, the CPU event around its launch call in the CUDA runtime
+    (the launch and the kernel share a correlation id), so a kernel counts
+    once, at the innermost op. torch's own kernel lists of an op miss a
+    kernel launched through ctypes (the patch kernel): its launch lands on
+    its profiler range. A launch outside any op is the row "(no op)"; a
+    kernel without a launch event stays out of the rows. The profiler's
+    device-side copies of its ranges are not kernels. Host time (no device
+    activity): each op's self CPU time. The ranges of `names` are the
+    attribution's, not ops."""
+    cpu = torch.autograd.DeviceType.CPU
+    src = _attribute(events, names)
+    kernels = {}
+    for e in events:
+        if e.device_type != cpu and not e.is_user_annotation:
+            kernels.setdefault(e.id, []).append(e)
+    rows = {}
+
+    def add(name, where, op, us, launches):
+        row = rows.setdefault((name, where), [0.0, set(), 0])
+        row[0] += us
+        row[1].add(op)
+        row[2] += launches
+
+    for e in events:
+        if e.device_type != cpu:
+            continue
+        if device_time:
+            if e.id in kernels and e.name.startswith("cu"):
+                op = e.cpu_parent
+                add(op.name if op else "(no op)", src[id(op)] if op else "",
+                    id(op), sum(k.time_range.elapsed_us()
+                                for k in kernels[e.id]), len(kernels[e.id]))
+        elif e.name not in names:
+            add(e.name, src[id(e)], id(e), e.self_cpu_time_total, 0)
+    device = [k for ks in kernels.values() for k in ks]
+    return ({k: [us, len(ops), n] for k, (us, ops, n) in rows.items()},
+            sum(k.time_range.elapsed_us() for k in device), len(device))
+
+
+def op_table(setup: Setup, iters=None, top=40):
+    """The op table of `setup`'s mode (see the module docstring): one
+    warm-up call, then `iters` calls (3; 1 for train) under torch.profiler
+    and `SourceLines`. Returns the JSON object, with every row."""
+    dev = setup.env.device
+    on_card = dev.type == "cuda"
+    iters = iters or (1 if setup.mode == "train" else 3)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    setup.fn(*setup.args)
+    _sync(dev)
+    lines = SourceLines()
+    patch0 = tp.LAUNCHES["extract_patches"]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        with lines:
+            for _ in range(iters):
+                setup.fn(*setup.args)
+        _sync(dev)
+    trace_s = time.perf_counter() - t0
+    patch = tp.LAUNCHES["extract_patches"] - patch0
+    t0 = time.perf_counter()
+    rows, kernel_us, kernel_n = op_rows(prof.events(), lines.names, on_card)
+    reduce_s = time.perf_counter() - t0
+    total = sum(r[0] for r in rows.values())
+    with_src = sum(r[0] for (_, where), r in rows.items() if where)
+    out = [dict(ms=us / iters / 1e3, pct=100 * us / total if total else 0.0,
+                name=name, source=where, calls=n / iters,
+                launches=k / iters)
+           for (name, where), (us, n, k) in sorted(
+               rows.items(), key=lambda kv: -kv[1][0])]
+    kind = "device" if on_card else "host"
+    res = dict(
+        mode=setup.mode, time=kind, num_envs=setup.env.num_envs,
+        iters=iters, total_ms=total / iters / 1e3,
+        kernel_ms=kernel_us / iters / 1e3 if on_card else None,
+        attributed_share=with_src / total if total else 0.0,
+        launches_per_call=kernel_n / iters,
+        patch_kernel_launches=patch, trace_s=trace_s, reduce_s=reduce_s,
+        device=torch.cuda.get_device_name(dev) if on_card else "cpu",
+        rows=out)
+    print(f"total {kind} self time: {res['total_ms']:.2f} ms/iter "
+          f"({iters} iters)")
+    for r in out[:top]:
+        print(f"{r['ms']:9.3f} ms  {r['pct']:5.1f}%  {r['name'][:60]:60s} "
+              f"{r['source'][-60:]}")
+    return res
+
+
+def decompose(stages, num_envs=None, device="cuda", iters=None, like=None):
+    """Host ms per call of each stage in `stages` (see the module
+    docstring), printed as the JAX tool prints them. `iters` maps a stage
+    to its calls (10; 5 for rollout and train). Returns the JSON object."""
+    iters = {**{"physics": 10, "env": 10, "rollout": 5, "train": 5},
+             **(iters or {})}
+    out = {}
+    for stage in STAGES:
+        if stage not in stages:
+            continue
+        like = build(stage, num_envs, device, like=like)
+        ms = host_ms(lambda: like.fn(*like.args), iters[stage],
+                     like.env.device)
+        N = like.env.num_envs
+        T = like.tc.runner.num_steps_per_env
+        steps = N * T if stage in ("rollout", "train") else N
+        out[stage] = dict(ms=ms, env_steps_per_s=steps / ms * 1e3,
+                          iters=iters[stage])
+        print(f"{STAGE_LINES[stage]}{ms:8.2f} ms  "
+              f"({steps / ms * 1e3:,.0f} env-steps/s)"
+              + (f"  [T={T}]" if steps != N else ""))
+    dev = like.env.device
+    return dict(decompose=out, num_envs=like.env.num_envs,
+                device=(torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"))
 
 
 def profile_train(runner, rs, top, task):
@@ -138,16 +523,43 @@ def profile_train(runner, rs, top, task):
     print(json.dumps(result))
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--task", default="go2_moe_cts",
                    choices=registry.task_names())
-    p.add_argument("--num_envs", type=int, default=4096)
+    p.add_argument("--num_envs", type=int, default=default_num_envs())
     p.add_argument("--steps", type=int, default=3)
-    p.add_argument("--top", type=int, default=15)
+    p.add_argument("--top", type=int, default=None,
+                   help="rows printed (15; 40 with --ops)")
     p.add_argument("--train", action="store_true",
                    help="split whole train iterations instead of steps")
-    args = p.parse_args()
+    p.add_argument("--ops", choices=OPS_MODES,
+                   help="rank ops by self time, with source lines "
+                        "(tools/profile_physics.py)")
+    p.add_argument("--decompose", nargs="*", choices=STAGES,
+                   help="time the stages (tools/bench_decompose.py; "
+                        "default env physics)")
+    p.add_argument("--iters", type=int, default=None,
+                   help="calls per mode or stage (--ops 3, 1 for train; "
+                        "--decompose 10, 5 for rollout and train)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda, or cpu for --ops and --decompose")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    if args.ops or args.decompose is not None:
+        if args.ops:
+            res = op_table(build(args.ops, args.num_envs, dev),
+                           args.iters, args.top or 40)
+            res["rows"] = res["rows"][:args.top or 40]
+        else:
+            stages = args.decompose or ["env", "physics"]
+            res = decompose(stages, args.num_envs, dev, iters=(
+                dict.fromkeys(stages, args.iters) if args.iters else None))
+        print(json.dumps(res))
+        return res
+    if dev.type != "cuda":
+        p.error("the rollout and --train modes run on the card only")
+    args.top = args.top or 15
 
     cfg, tc = registry.get_cfgs(args.task)
     env = registry.make_env(args.task, cfg, num_envs=args.num_envs,
