@@ -9,8 +9,12 @@ Phases (any failure exits non-zero and prints no result line):
    (each module in `kernel_modules` names its source).
 3. Hold each kernel against its plain PyTorch version on the main path's
    inputs (bit-exact for the terrain-patch copy), and time the kernel, the
-   plain version and one PyTorch library call computing the same function,
-   with CUDA events.
+   plain version and one PyTorch library call computing the same function:
+   with CUDA events around 50 launches, and with the same 50 launches
+   captured in one CUDA graph (no host cost per launch in the reading; the
+   kernels line reports the event readings as `ms`, `plain_ms` and
+   `library_ms`, the graph readings as `graph_ms`, `plain_graph_ms` and
+   `library_graph_ms`).
 4. Check the card against the port's CPU path
    (go2_rl_gym_tpu_torch.tools.card_check): a small rough-terrain env
    stepped from the same state on both devices must agree, and so must one
@@ -19,7 +23,13 @@ Phases (any failure exits non-zero and prints no result line):
    go2_lstm's RecurrentPPO.update with its LSTM and with a GRU.
 5. Main path, play: the committed 75k policy's deterministic student rolls
    24 steps on the full flagship terrain at 4096 envs
-   (go2_rl_gym_tpu_torch.scripts.play.play).
+   (go2_rl_gym_tpu_torch.scripts.play.play), env.step as one CUDA graph
+   (utils/graphs.py EnvStep): 3 patch launches (the init step, the eager
+   warm-up, the capture; replays launch nothing from the host) and 1
+   capture. Then VecEnvAdapter on the same terrain and env count: 3 steps
+   through its captured env.step, against eager env.steps from the same
+   state and actions: the obs must be equal (a replay runs the eager
+   step's kernels on the same inputs and the same random stream).
 6. Main path, rollout: OnPolicyRunner.rollout (24 steps, seeded init) at
    4096 envs, once untimed and once timed.
 7. Main path, train: the go2_moe_cts task built through the registry at
@@ -51,8 +61,10 @@ Phases (any failure exits non-zero and prints no result line):
    and reset, and a reset draws from each rank's own generator.
 10. Main path, export + eval (export/, train/eval_hook.py, deploy/): the
    go2_moe_cts task through the registry at 4096 envs, `runner.learn(rs,
-   2)` with a log_dir under build/ and eval_interval 1: 24 patch launches
-   per iteration, jit_models/policy_jit_{0,1,2}.pt (the JAX cadence) and
+   2)` with a log_dir under build/ and eval_interval 1, graphed: train_step
+   runs twice (the eager warm-up and the capture, 24 patch launches each),
+   1 capture, iteration 1 a replay; jit_models/policy_jit_{0,1,2}.pt (the
+   JAX cadence) and
    one evaluator process per export (CUDA_VISIBLE_DEVICES="", its stderr
    kept under build/ for this phase). Then, from the trained weights: the
    TorchScript export on the CPU and, loaded onto the card, on the card,
@@ -72,12 +84,32 @@ Phases (any failure exits non-zero and prints no result line):
 11. Main path, play checkpoint: scripts.play's checkpoint mode on the
    model_2.pt of phase 10 at 16 envs with the play overrides (5 x 5
    terrain): policy_jit.pt, policy.onnx and policy.pkl written, 24 finite
-   steps, 25 patch launches (24 + the init step).
+   steps through the captured env.step, 3 patch launches (the init step,
+   the warm-up, the capture).
+   Train graph (utils/graphs.py, OnPolicyRunner.compiled_step), after 8:
+   for go2_moe_cts, go2, go2_lstm and go2_fast_flat_move at 4096 envs, from
+   one state at random episode lengths, with deterministic algorithms on
+   (warn_only: each op that has no deterministic version is named), K = 3
+   eager train_steps twice (the eager-vs-eager spread) and K = 3 graphed
+   (the eager warm-up under the sync debug mode "error", the capture, 2
+   replays). The graphed run's parameters, Adam states, learning rates,
+   RunnerState and stacked metrics must lie within the spread, both
+   printed; every generator's state must equal the eager run's; 1 capture
+   per runner; 24 patch launches in the warm-up and 24 captured on rough
+   terrain, 0 on the plane, none from the replays. A save after the
+   replays, loaded into an eager runner, gives the next iteration equal to
+   the graphed one's. Then, on a runner of its own with deterministic
+   algorithms off, as learn runs: capture + instantiate s, the graph
+   pool's bytes, and host ms and env-steps/s per iteration of eager and
+   graphed iterations alternating, with the device ms of each replay (CUDA
+   events) and the host ms of the replay call.
    For 5 to 11 every launch count is set to 0 just before each run and
-   read just after (in the ranks' processes for 9); each rough-terrain
-   policy step must launch the patch kernel once (24 per train iteration)
-   and the plane none, and obs and rewards must be finite. Every spawned
-   process has a timeout and is killed with its process group on failure.
+   read just after (in the ranks' processes for 9); each eager
+   rough-terrain policy step launches the patch kernel once (24 per eager
+   train iteration), a capture records it once, a replay launches nothing
+   from the host, and the plane none; obs and rewards must be finite.
+   Every spawned process has a timeout and is killed with its process
+   group on failure.
 12. Engine (sim/engine.py, the N-major reference engine; no hand-written
    kernel on its path: it reads the global heightfield, not the patches):
    the flagship terrain's TerrainData (the global 1345 x 2195 heightfield)
@@ -115,9 +147,11 @@ Phases (any failure exits non-zero and prints no result line):
    torch.cuda.device_count() NCCL ranks (world 1 on one card): finite
    metrics, 4 patch launches per rank (one per policy step).
 15. Print one JSON line listing every kernel, then the device line.
+
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -173,6 +207,30 @@ def cuda_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, launches=50, replays=5):
+    """Device time of one call of fn with no host in the reading: `launches`
+    calls captured in one CUDA graph, the graph replayed `replays` times
+    (CUDA events around each replay); the median replay over `launches`."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()                      # the first replay uploads the graph
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
 def phase_patch_kernel(results):
     """Kernel vs plain version at the flagship shapes, plus timings."""
     import torch
@@ -226,6 +284,13 @@ def phase_patch_kernel(results):
     kernel_ms = cuda_ms(lambda: tp.extract_patches_cuda(channels, origins))
     plain_ms = cuda_ms(lambda: tp.extract_patches_plain(channels, origins))
     library_ms = cuda_ms(lambda: torch.take(channels, idx))
+    # the same 50 launches inside one captured graph: no host cost per launch
+    kernel_g = graph_ms(lambda: tp.extract_patches_cuda(channels, origins))
+    plain_g = graph_ms(lambda: tp.extract_patches_plain(channels, origins))
+    library_g = graph_ms(lambda: torch.take(channels, idx))
+    graphed = tp.extract_patches_cuda(channels, check)
+    if not torch.equal(graphed, out_p):
+        raise AssertionError("extract_patches disagrees after the capture")
 
     # least bytes: each output written once, each input read once; the
     # channel cells read are the union of this run's windows
@@ -237,17 +302,22 @@ def phase_patch_kernel(results):
     out_bytes = NUM_ENVS * 3 * tp.PATCH * tp.PATCH * 4
     in_bytes = 3 * n_cells * 4 + origins.numel() * 4
     bound_ms = (out_bytes + in_bytes) / H100_BYTES_PER_S * 1e3
-    print(f"extract_patches at N={NUM_ENVS}: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, torch.take {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({out_bytes / 1e6:.1f} MB out + "
-          f"{in_bytes / 1e6:.1f} MB in, union of windows {n_cells} cells)")
+    print(f"extract_patches at N={NUM_ENVS}, CUDA events around 50 "
+          f"launches: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.take {library_ms:.4f} ms; the 50 launches in one CUDA "
+          f"graph (median of 5 replays): kernel {kernel_g:.4f} ms "
+          f"({bound_ms / kernel_g:.1%} of the bound), plain {plain_g:.4f} "
+          f"ms, torch.take {library_g:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({out_bytes / 1e6:.1f} MB out + {in_bytes / 1e6:.1f} MB in, "
+          f"union of windows {n_cells} cells)")
     results["extract_patches"] = dict(
         name="extract_patches", route="cuda",
         source="go2_rl_gym_tpu_torch/ops/csrc/extract_patches.cu",
         replaces="go2_rl_gym_tpu/ops/terrain_patches.py:137",
         bit_exact=exact, max_abs_err=max_err,
-        ms=kernel_ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
+        ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by="bytes", library_ms=library_ms, graph_ms=kernel_g,
+        plain_graph_ms=plain_g, library_graph_ms=library_g)
     del channels, out_k, out_p, lib_out, idx, cover
 
 
@@ -290,22 +360,75 @@ def reset_launch_counts():
 def phase_play():
     import torch
     from go2_rl_gym_tpu_torch.scripts.play import play
+    from go2_rl_gym_tpu_torch.utils import graphs
 
     reset_launch_counts()
+    caps = graphs.CAPTURES["env_step"]
     res = play(num_envs=NUM_ENVS, steps=STEPS, device="cuda")
     torch.cuda.synchronize()
     counts = launch_counts()
-    # one zero-action step in init_runner_state + STEPS play steps
-    want = STEPS + 1
+    caps = graphs.CAPTURES["env_step"] - caps
+    # one zero-action step in init_runner_state, then env.step as a graph:
+    # the eager warm-up and the capture launch the kernel, replays do not
+    want = 3
     print(f"play: 75k policy, {NUM_ENVS} envs, {STEPS} steps: mean reward per "
           f"step {[round(r, 5) for r in res['mean_reward']]}")
     print(f"play: done share per step {[round(d, 5) for d in res['done_share']]}")
-    print(f"play: {res['env_steps_per_s']:.1f} env-steps/s; launches {counts}")
+    print(f"play: {res['env_steps_per_s']:.1f} env-steps/s; launches {counts} "
+          f"(init step, warm-up, capture); env.step captures {caps}")
     if not res["finite"]:
         raise AssertionError("play produced non-finite obs or rewards")
-    if counts["extract_patches"] != want:
+    if counts["extract_patches"] != want or caps != 1:
         raise AssertionError(f"extract_patches launched "
-                             f"{counts['extract_patches']} times, want {want}")
+                             f"{counts['extract_patches']} times, want {want};"
+                             f" {caps} captures, want 1")
+    return dict(counts, **{"extract_patches": counts["extract_patches"]
+                           + phase_vec_env()["extract_patches"]})
+
+
+def phase_vec_env(steps=3):
+    """VecEnvAdapter on the flagship terrain at 4096 envs: `steps` steps
+    through its captured env.step, against eager env.steps from the same
+    state and actions."""
+    import torch
+    from go2_rl_gym_tpu_torch.env.config import Go2Cfg
+    from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+    from go2_rl_gym_tpu_torch.env.vec_env import VecEnvAdapter
+    from go2_rl_gym_tpu_torch.utils import graphs
+
+    cfg = Go2Cfg()
+    cfg.env.num_envs = NUM_ENVS
+    env = Go2Env(cfg)
+    reset_launch_counts()
+    caps = graphs.CAPTURES["env_step"]
+    vec = VecEnvAdapter(env, seed=0)
+    state = graphs.copy_tree(vec._state)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    acts = [0.3 * torch.randn((NUM_ENVS, 12), generator=g, device="cuda")
+            for _ in range(steps)]
+    obs = [vec.step(a)[0] for a in acts]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    caps = graphs.CAPTURES["env_step"] - caps
+    err = 0.0
+    with torch.no_grad():
+        for a, o in zip(acts, obs):
+            state, out = env.step(state, a)
+            err = max(err, float((out.obs - o).abs().max()))
+    length = vec.episode_length_buf
+    print(f"vec env: {steps} steps of VecEnvAdapter at {NUM_ENVS} envs "
+          f"through a captured env.step: obs max abs difference to eager "
+          f"env.steps {err:.3e}; launches {counts} (reset, warm-up, "
+          f"capture); captures {caps}")
+    if caps != 1 or counts["extract_patches"] != 3:
+        raise AssertionError(f"vec env: {caps} captures, launches {counts}")
+    if err != 0.0:
+        raise AssertionError(f"vec env: the captured step's obs differ from "
+                             f"eager env.steps by {err:.3e}")
+    if not (all(bool(torch.isfinite(o).all()) for o in obs)
+            and bool((length == state.episode_length).all())):
+        raise AssertionError("vec env: non-finite obs or episode lengths "
+                             "differ from the eager steps'")
     return counts
 
 
@@ -427,6 +550,233 @@ def phase_train(task="go2_moe_cts", iterations=2):
         if not h > 0:
             raise AssertionError(f"{task}: the carried memory is zero")
     return runs[-1][2]
+
+
+GRAPH_TASKS = ("go2_moe_cts", "go2", "go2_lstm", "go2_fast_flat_move")
+GRAPH_K = 3                     # iterations per run of phase train graph
+GRAPH_TIMED = 3                 # alternating eager / graphed timed pairs
+# the algorithms' train state besides the parameters: PPO's or CTS's
+TRAIN_STATE = ("opt", "opt1", "opt2", "lr", "lr2")
+
+
+def _state_of(runner, rs, rows):
+    """A run's end state by category: the parameters, the Adam moments and
+    counts, the learning rates, the RunnerState's tensors, the stacked
+    metrics, and the generators' states."""
+    import torch
+    from go2_rl_gym_tpu_torch.utils import graphs
+    alg = runner.alg
+    out = {"params": {k: p.detach().clone()
+                      for k, p in alg.model.named_parameters()},
+           "adam": {}, "lr": {}, "runner_state": {}, "generators": {}}
+    for n in (n for n in TRAIN_STATE if hasattr(alg, n)):
+        for path, x in graphs.leaves(getattr(alg, n)):
+            key = ".".join(map(str, (n,) + path))
+            out["lr" if n.startswith("lr") else "adam"][key] = x.clone()
+    for path, x in graphs.leaves(rs):
+        key = ".".join(map(str, path))
+        if isinstance(x, torch.Generator):
+            out["generators"][key] = x.get_state()
+        else:
+            out["runner_state"][key] = x.clone()
+    out["metrics"] = {"stacked": torch.stack(rows)}
+    return out
+
+
+def _spread(a, b):
+    """Max |a - b| per category of two `_state_of`s (generators: 0.0 if
+    every state is equal, else inf)."""
+    out = {}
+    for cat in a:
+        if cat == "generators":
+            out[cat] = 0.0 if all(bool((a[cat][k] == b[cat][k]).all())
+                                  for k in a[cat]) else float("inf")
+            continue
+        errs = [float((a[cat][k].double() - b[cat][k].double()).abs().max())
+                if a[cat][k].numel() else 0.0 for k in a[cat]]
+        out[cat] = max(errs) if errs else 0.0
+    return out
+
+
+def phase_train_graph():
+    """The compiled train step (utils/graphs.py) against eager train_steps
+    for each of GRAPH_TASKS at 4096 envs (see the module docstring).
+    Returns the patch launches captured in the graphs."""
+    import torch
+    import warnings
+    from go2_rl_gym_tpu_torch.utils import graphs
+    from go2_rl_gym_tpu_torch.utils import registry
+
+    captured_total = 0
+    bad = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for task in GRAPH_TASKS:
+            env_cfg, tc = registry.get_cfgs(task)
+            env = registry.make_env(
+                task, env_cfg, num_envs=NUM_ENVS,
+                num_steps_per_env=tc.runner.num_steps_per_env)
+            runner = registry.make_runner(task, env, tc)
+            rs0 = graphs.copy_tree(runner.init_runner_state(
+                tc.seed, init_at_random_ep_len=True))
+            alg = runner.alg
+            params0 = {k: p.detach().clone()
+                       for k, p in alg.model.named_parameters()}
+            owned0 = {n: graphs.copy_tree(getattr(alg, n))
+                      for n in TRAIN_STATE if hasattr(alg, n)}
+            plane = env_cfg.terrain.mesh_type == "plane"
+            steps = tc.runner.num_steps_per_env
+
+            def restore():
+                with torch.no_grad():
+                    for k, p in alg.model.named_parameters():
+                        p.copy_(params0[k])
+                for n, v in owned0.items():
+                    graphs.assign(getattr(alg, n), v)
+                return graphs.copy_tree(rs0)
+
+            def flat(m):
+                keys, _ = graphs.metric_layout(m)
+                return graphs.flat_metrics(keys)(m)
+
+            def eager_run():
+                rs, rows = restore(), []
+                for _ in range(GRAPH_K):
+                    rs, m = runner.train_step(rs)
+                    rows.append(flat(m))
+                torch.cuda.synchronize()
+                return _state_of(runner, rs, rows)
+
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                e1 = eager_run()
+                e2 = eager_run()
+            nondet = sorted({str(w.message).split(" does not have")[0]
+                             for w in caught
+                             if "deterministic" in str(w.message)})
+
+            # graphed: the eager warm-up (under the sync debug mode
+            # "error"), the capture, then GRAPH_K - 1 replays
+            rs = restore()
+            if runner.train_mode()[0] != "graph":
+                raise AssertionError(f"{task}: learn's mode is "
+                                     f"{runner.train_mode()}")
+            step = runner.compiled_step(rs)
+            caps0 = graphs.CAPTURES["train_step"]
+            reset_launch_counts()
+            rows = [step._warm_up().clone()]
+            warm = launch_counts()["extract_patches"]
+            reset_launch_counts()
+            step._capture()
+            captured = launch_counts()["extract_patches"]
+            for _ in range(GRAPH_K - 1):
+                rows.append(step().clone())
+            torch.cuda.synchronize()
+            replayed = launch_counts()["extract_patches"] - captured
+            g = _state_of(runner, step.state, rows)
+            captured_total += captured
+
+            spread, err = _spread(e1, e2), _spread(g, e1)
+            print(f"train graph {task}: {GRAPH_K} iterations at {NUM_ENVS} "
+                  f"envs; max abs difference [graphed vs eager, eager vs "
+                  f"eager]: " + json.dumps(
+                      {k: [err[k], spread[k]] for k in err}))
+            print(f"train graph {task}: ops without a deterministic "
+                  f"implementation (torch.use_deterministic_algorithms "
+                  f"warnings): {nondet}")
+            over = [k for k in err if err[k] > spread[k]]
+            if over:
+                bad.append(f"{task}: graphed beyond the eager spread in "
+                           f"{over}")
+            if err["generators"] != 0.0:
+                bad.append(f"{task}: generator states differ")
+            want = 0 if plane else steps
+            print(f"train graph {task}: patch launches: warm-up {warm}, "
+                  f"captured {captured}, in {GRAPH_K - 1} replays "
+                  f"{replayed}; captures "
+                  f"{graphs.CAPTURES['train_step'] - caps0} (runner "
+                  f"{step.captures}); capture + instantiate "
+                  f"{step.capture_s:.2f} s; graph pool "
+                  f"{step.pool_bytes} bytes ({step.pool_bytes / 2**30:.2f} "
+                  f"GiB)")
+            if (warm, captured, replayed) != (want, want, 0):
+                bad.append(f"{task}: patch launches {warm}, {captured}, "
+                           f"{replayed}, want {want}, {want}, 0")
+
+            # save after the replays; an eager runner loads it and takes
+            # the next iteration, which must equal the graphed one's
+            path = os.path.join(ROOT, "build", f"graph_{task}.pt")
+            runner.current_iteration = GRAPH_K
+            runner.save(step.state, path)
+            rows.append(step().clone())
+            g4 = _state_of(runner, step.state, rows[-1:])
+            other = registry.make_runner(task, env, tc)
+            rs_o = other.load(other.init_runner_state(1), path)
+            rs_o, m = other.train_step(rs_o)
+            e4 = _state_of(other, rs_o, [flat(m)])
+            os.remove(path)
+            rt = _spread(g4, e4)
+            print(f"train graph {task}: save after the replays, loaded into "
+                  f"an eager runner, one more iteration: max abs difference "
+                  f"to the graphed one's " + json.dumps(rt))
+            if any(rt[k] > spread[k] for k in rt):
+                bad.append(f"{task}: save/load round trip {rt}")
+            if step.captures != 1 or graphs.CAPTURES["train_step"] - caps0 != 1:
+                bad.append(f"{task}: {step.captures} captures")
+
+            # times, as learn runs: a runner of its own, deterministic
+            # algorithms off, its graph captured after its warm-up
+            torch.use_deterministic_algorithms(False)
+            timed = registry.make_runner(task, env, tc)
+            rs_e = timed.init_runner_state(tc.seed,
+                                           init_at_random_ep_len=True)
+            step_t = timed.compiled_step(rs_e)
+            step_t()
+            times = {"eager": [], "graphed": [], "replay_call": [],
+                     "replay_device": []}
+            for _ in range(GRAPH_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                rs_e, _ = timed.train_step(rs_e)
+                torch.cuda.synchronize()
+                times["eager"].append((time.perf_counter() - t) * 1e3)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                start.record()
+                step_t()
+                end.record()
+                times["replay_call"].append((time.perf_counter() - t) * 1e3)
+                torch.cuda.synchronize()
+                times["graphed"].append((time.perf_counter() - t) * 1e3)
+                times["replay_device"].append(start.elapsed_time(end))
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            rate = {k: [round(steps * NUM_ENVS / (v / 1e3), 1)
+                        for v in times[k]] for k in ("eager", "graphed")}
+            print(f"train graph {task}, times as learn runs (deterministic "
+                  f"algorithms off; capture + instantiate "
+                  f"{step_t.capture_s:.2f} s, graph pool {step_t.pool_bytes} "
+                  f"bytes): host ms per iteration (ending in a synchronize), "
+                  f"eager / graphed alternating: eager "
+                  f"{[round(v, 3) for v in times['eager']]}, graphed "
+                  f"{[round(v, 3) for v in times['graphed']]}; env-steps/s "
+                  f"eager {rate['eager']}, graphed {rate['graphed']}; "
+                  f"device ms of one replay (CUDA events) "
+                  f"{[round(v, 3) for v in times['replay_device']]}; host "
+                  f"ms of the replay call "
+                  f"{[round(v, 3) for v in times['replay_call']]}")
+            if step_t.captures != 1:
+                bad.append(f"{task}: the timed runner captured "
+                           f"{step_t.captures} times")
+            del runner, other, step, env, timed, step_t
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if bad:
+        raise AssertionError(f"train graph: {bad}")
+    return {"extract_patches": captured_total}
 
 
 def run_ranks(cmds):
@@ -648,6 +998,7 @@ def phase_export_eval(shared, num_envs=NUM_ENVS, device="cuda"):
     from go2_rl_gym_tpu_torch.deploy.mujoco_eval import ModelPolicy
     from go2_rl_gym_tpu_torch.export import exporter, native, onnx_native
     from go2_rl_gym_tpu_torch.export.importer import tree_from_named
+    from go2_rl_gym_tpu_torch.utils import graphs
     from go2_rl_gym_tpu_torch.utils import registry
 
     task, iters = "go2_moe_cts", 2
@@ -660,14 +1011,15 @@ def phase_export_eval(shared, num_envs=NUM_ENVS, device="cuda"):
                                   device=device, eval_interval=1)
     ev = runner.evaluator = smoke_evaluator(runner.log_dir)
     rs = runner.init_runner_state(tc.seed, init_at_random_ep_len=True)
-    per_iter = []
+    calls = []
     train_step = runner.train_step
 
     def counted(*args, **kwargs):
         out = train_step(*args, **kwargs)
-        per_iter.append(launch_counts()["extract_patches"])
+        calls.append(launch_counts()["extract_patches"])
         return out
     runner.train_step = counted
+    caps = graphs.CAPTURES["train_step"]
     try:
         reset_launch_counts()
         t = time.perf_counter()
@@ -676,15 +1028,20 @@ def phase_export_eval(shared, num_envs=NUM_ENVS, device="cuda"):
         counts = launch_counts()
     finally:
         ev.kill_all()
+    caps = graphs.CAPTURES["train_step"] - caps
     shared.update(log_root=log_root, run=os.path.basename(runner.log_dir))
-    per_iter = [b - a for a, b in zip([0] + per_iter[:-1], per_iter)]
+    calls = [b - a for a, b in zip([0] + calls[:-1], calls)]
     steps = tc.runner.num_steps_per_env
     print(f"export + eval: learn({iters}) with eval_interval 1 in "
-          f"{learn_s:.1f} s (waits for the evaluators included); patch "
-          f"launches per iteration {per_iter}")
-    if per_iter != [steps] * iters:
-        raise AssertionError(f"patch launches per iteration {per_iter}, "
-                             f"want {[steps] * iters}")
+          f"{learn_s:.1f} s (waits for the evaluators included), mode "
+          f"{runner.train_mode()[0]}: train_step ran {len(calls)} times "
+          f"(the eager warm-up and the capture), patch launches per call "
+          f"{calls}, {caps} capture; the other iterations replayed")
+    if (runner.train_mode()[0] != "graph" or caps != 1
+            or calls != [steps] * 2):
+        raise AssertionError(f"learn ran {runner.train_mode()}, patch "
+                             f"launches per train_step call {calls}, want "
+                             f"{[steps] * 2}, {caps} captures")
     rows = [json.loads(line) for line in
             open(os.path.join(runner.log_dir, "metrics.jsonl"))]
     fps = [r["value"] for r in rows if r["tag"] == "Perf/total_fps"]
@@ -830,10 +1187,10 @@ def phase_play_checkpoint(shared, device="cuda"):
         raise AssertionError(f"exported {res['exported']}")
     if not res["finite"]:
         raise AssertionError("play checkpoint produced non-finite values")
-    if counts["extract_patches"] != STEPS + 1:
+    # the init step, then env.step's eager warm-up and its capture
+    if counts["extract_patches"] != 3:
         raise AssertionError(f"extract_patches launched "
-                             f"{counts['extract_patches']} times, want "
-                             f"{STEPS + 1}")
+                             f"{counts['extract_patches']} times, want 3")
     return counts
 
 
@@ -1071,6 +1428,9 @@ def phase_graft():
 
 def main():
     sys.path.insert(0, ROOT)
+    # cuBLAS's deterministic workspace, for phase train graph's
+    # deterministic eager runs; set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1114,6 +1474,7 @@ def main():
               ("train go2_lstm", lambda: phase_train("go2_lstm")),
               ("train go2_fast_flat_move",
                lambda: phase_train("go2_fast_flat_move", iterations=1)),
+              ("train graph", phase_train_graph),
               ("export + eval", lambda: phase_export_eval(shared)),
               ("play checkpoint", lambda: phase_play_checkpoint(shared)),
               ("train ddp", phase_train_ddp),

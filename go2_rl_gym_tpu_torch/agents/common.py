@@ -14,7 +14,7 @@ KL sums) before the clip, so that every rank takes the same step.
 from __future__ import annotations
 
 import math
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -166,6 +166,21 @@ def adam_init(params) -> AdamState:
             for p in params])
 
 
+def adam_reset(state: AdamState):
+    """`adam_init`'s values written into `state`'s tensors, in place."""
+    state.count.zero_()
+    torch._foreach_zero_(state.mu + state.nu)
+
+
+def adam_load(state: AdamState, saved: Dict):
+    """A saved Adam state (`AdamState._asdict()`, on any device) copied
+    into `state`'s tensors, in place."""
+    state.count.copy_(saved["count"])
+    for dst, src in zip(state.mu + state.nu,
+                        list(saved["mu"]) + list(saved["nu"])):
+        dst.copy_(src)
+
+
 def clip_by_global_norm(grads, max_norm):
     """optax.clip_by_global_norm: every gradient becomes g / norm * max_norm
     when the global norm reaches max_norm, else stays g. `grads` are
@@ -185,7 +200,7 @@ def adam_step(params, grads, state: AdamState, lr, max_grad_norm):
     clip by global norm, then optax's Adam with its order of operations
     (moments, bias correction by 1 - b**count, m / (sqrt(v) + eps)), then
     params + (-lr) * update. `lr` is a 0-d tensor on the parameters' device.
-    Returns the new state (its count advanced)."""
+    Returns `state`, its count advanced in place."""
     params = list(params)
     grads = clip_by_global_norm(list(grads), max_grad_norm)
     mu, nu = state.mu, state.nu
@@ -194,8 +209,8 @@ def adam_step(params, grads, state: AdamState, lr, max_grad_norm):
     torch._foreach_mul_(nu, ADAM_B2)
     torch._foreach_add_(nu, torch._foreach_mul(
         torch._foreach_mul(grads, grads), 1 - ADAM_B2))
-    count = state.count + 1
-    step = count.to(torch.float32)
+    state.count.add_(1)
+    step = state.count.to(torch.float32)
     mu_hat = torch._foreach_div(mu, 1 - torch.pow(ADAM_B1, step))
     denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - torch.pow(ADAM_B2,
                                                                    step)))
@@ -203,4 +218,4 @@ def adam_step(params, grads, state: AdamState, lr, max_grad_norm):
     updates = torch._foreach_div(mu_hat, denom)
     torch._foreach_mul_(updates, -lr)
     torch._foreach_add_(params, updates)
-    return AdamState(count, mu, nu)
+    return state

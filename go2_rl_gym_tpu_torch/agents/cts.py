@@ -120,6 +120,8 @@ class CTS:
         # the rollout's mask, of this rank's envs under a mesh
         self.is_student = self._is_student_all = torch.as_tensor(
             is_student, device=self.device)
+        self._envs_t = tuple(torch.as_tensor(e, device=self.device)
+                             for e in (self.teacher_envs, self.student_envs))
         self.mesh: Optional[mesh_lib.Mesh] = None
         self._flat_idx = {}
         self.reset_train_state()
@@ -145,15 +147,23 @@ class CTS:
 
     def reset_train_state(self):
         """Fresh Adam states and the configured learning rate (JAX
-        CTS.init, cts.py:121-131); the parameters are left as they are."""
-        p1, p2 = self.param_groups()
-        self.opt1 = common.adam_init(p1)
-        self.opt2 = common.adam_init(p2)
-        self.lr = torch.tensor(self.cfg.learning_rate, dtype=torch.float32,
-                               device=self.device)
-        # optimizer 2's learning rate is constant
-        self.lr2 = torch.tensor(self.cfg.student_encoder_learning_rate,
-                                dtype=torch.float32, device=self.device)
+        CTS.init, cts.py:121-131); the parameters are left as they are.
+        The train state is made on the first call and written in place
+        after that, as `update` writes it: it keeps its storage, so a
+        captured graph of the update goes on reading it."""
+        if not hasattr(self, "opt1"):
+            p1, p2 = self.param_groups()
+            self.opt1 = common.adam_init(p1)
+            self.opt2 = common.adam_init(p2)
+            self.lr = torch.empty((), dtype=torch.float32,
+                                  device=self.device)
+            # optimizer 2's learning rate is constant
+            self.lr2 = torch.empty((), dtype=torch.float32,
+                                   device=self.device)
+        common.adam_reset(self.opt1)
+        common.adam_reset(self.opt2)
+        self.lr.fill_(self.cfg.learning_rate)
+        self.lr2.fill_(self.cfg.student_encoder_learning_rate)
 
     def train_state_dict(self) -> Dict:
         """Everything the update carries: model weights, both Adam states,
@@ -163,14 +173,12 @@ class CTS:
                 "lr": self.lr}
 
     def load_train_state_dict(self, sd: Dict):
+        """`train_state_dict`'s values, copied into the train state's
+        storage (as `reset_train_state` writes it)."""
         self.model.load_state_dict(sd["model"])
-        dev = self.device
-        self.opt1, self.opt2 = (
-            common.AdamState(count=o["count"].to(dev),
-                             mu=[t.to(dev) for t in o["mu"]],
-                             nu=[t.to(dev) for t in o["nu"]])
-            for o in (sd["opt1"], sd["opt2"]))
-        self.lr = sd["lr"].to(dev)
+        common.adam_load(self.opt1, sd["opt1"])
+        common.adam_load(self.opt2, sd["opt2"])
+        self.lr.copy_(sd["lr"])
 
     # ------------------------------------------------------------------
     # Rollout side
@@ -217,13 +225,12 @@ class CTS:
     def _flat_indices(self, T):
         """Static flat positions of teacher/student samples in env-major
         (N, T) flattened storage of the global batch, on the device (made
-        once per T: a copy from the host would wait for the device)."""
+        once per T, from the env split already there: a copy from the host
+        would wait for the device)."""
         if T not in self._flat_idx:
-            ar = np.arange(T)[None, :]
-            self._flat_idx[T] = tuple(
-                torch.as_tensor((envs[:, None] * T + ar).reshape(-1),
-                                device=self.device)
-                for envs in (self.teacher_envs, self.student_envs))
+            ar = torch.arange(T, device=self.device)[None, :]
+            self._flat_idx[T] = tuple((envs[:, None] * T + ar).reshape(-1)
+                                      for envs in self._envs_t)
         return self._flat_idx[T]
 
     def _load_balance(self, gate, count):
@@ -359,7 +366,7 @@ class CTS:
             opt2, _ = common.minibatch_step(self.mesh, loss, p2, opt2,
                                             self.lr2, cfg.max_grad_norm)
             stats2.append(torch.stack(stats).detach())
-        self.opt1, self.opt2, self.lr = opt1, opt2, lr
+        self.lr.copy_(lr)          # the Adam states advanced in place
 
         s1 = torch.stack(stats1).mean(dim=0)
         s2 = torch.stack(stats2).mean(dim=0)

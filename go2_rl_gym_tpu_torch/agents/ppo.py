@@ -91,10 +91,16 @@ class PPO:
 
     def reset_train_state(self):
         """A fresh Adam state and the configured learning rate (JAX
-        PPO.init, ppo.py:58-63); the parameters are left as they are."""
-        self.opt = common.adam_init(self.model.parameters())
-        self.lr = torch.tensor(self.cfg.learning_rate, dtype=torch.float32,
-                               device=self.device)
+        PPO.init, ppo.py:58-63); the parameters are left as they are.
+        The train state is made on the first call and written in place
+        after that, as `update` writes it: it keeps its storage, so a
+        captured graph of the update goes on reading it."""
+        if not hasattr(self, "opt"):
+            self.opt = common.adam_init(self.model.parameters())
+            self.lr = torch.empty((), dtype=torch.float32,
+                                  device=self.device)
+        common.adam_reset(self.opt)
+        self.lr.fill_(self.cfg.learning_rate)
 
     def train_state_dict(self) -> Dict:
         """Everything the update carries: model weights, the Adam state, the
@@ -103,12 +109,11 @@ class PPO:
                 "lr": self.lr}
 
     def load_train_state_dict(self, sd: Dict):
+        """`train_state_dict`'s values, copied into the train state's
+        storage (as `reset_train_state` writes it)."""
         self.model.load_state_dict(sd["model"])
-        dev, o = self.device, sd["opt"]
-        self.opt = common.AdamState(count=o["count"].to(dev),
-                                    mu=[t.to(dev) for t in o["mu"]],
-                                    nu=[t.to(dev) for t in o["nu"]])
-        self.lr = sd["lr"].to(dev)
+        common.adam_load(self.opt, sd["opt"])
+        self.lr.copy_(sd["lr"])
 
     # ------------------------------------------------------------------
     # Rollout side
@@ -215,7 +220,7 @@ class PPO:
                     self.mesh, loss, params, opt, lr, cfg.max_grad_norm,
                     kl_sum, count, cfg.desired_kl)
                 stats.append(torch.stack(st).detach())
-        self.opt, self.lr = opt, lr
+        self.lr.copy_(lr)          # the Adam state advanced in place
         s = torch.stack(stats).mean(dim=0)
         return {"value_loss": s[0], "surrogate_loss": s[1], "entropy": s[2],
                 "learning_rate": lr}

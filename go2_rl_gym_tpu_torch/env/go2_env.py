@@ -211,6 +211,16 @@ class Go2Env:
             b for b in range(self.model.nb)
             if any(n in self.model.body_names[b].lower()
                    for n in cfg.asset.penalize_contacts_on))
+        # the step's constant tensors, made once on the device: a tensor
+        # built from host data in the step would copy from the host
+        long = dict(dtype=torch.long, device=dev)
+        self._termination_idx = torch.as_tensor(self.termination_bodies,
+                                                **long)
+        self._penalized_idx = torch.as_tensor(self.penalized_bodies, **long)
+        self._hip_idx = torch.as_tensor((0, 3, 6, 9), **long)  # the hips
+        self._gravity_dir = f32([0.0, 0.0, -1.0])
+        self._forward_axis = f32([1.0, 0.0, 0.0])
+        self._default_dyn = engine.default_dyn_params(self.model, dev)
 
         # ---- command machinery tables ----
         c = cfg.commands
@@ -340,7 +350,7 @@ class Go2Env:
         dr = self.cfg.domain_rand
         N = self.num_envs
         nb = self.model.nb
-        base = engine.default_dyn_params(self.model, self.device)
+        base = self._default_dyn
         mass = base.mass.expand(N, nb).clone()
         com = base.com.expand(N, nb, 3).clone()
         inertia = base.inertia.expand(N, nb, 3, 3).clone()
@@ -795,7 +805,7 @@ class Go2Env:
         base_quat = sim.base_quat
         base_lin_vel_b = maths.quat_rotate_inverse(base_quat, sim.base_lin_vel)
         base_ang_vel_b = maths.quat_rotate_inverse(base_quat, sim.base_ang_vel)
-        gvec = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(N, 3)
+        gvec = self._gravity_dir.expand(N, 3)
         projected_gravity = maths.quat_rotate_inverse(base_quat, gvec)
         rpy = maths.quat_to_euler_xyz(base_quat)
         max_move = torch.maximum(
@@ -820,7 +830,7 @@ class Go2Env:
         commands = state.commands
         if cfg.commands.heading_command:
             fwd = maths.quat_rotate(
-                base_quat, torch.tensor([1.0, 0.0, 0.0], device=dev).expand(N, 3))
+                base_quat, self._forward_axis.expand(N, 3))
             heading = torch.atan2(fwd[:, 1], fwd[:, 0])
             it = self._current_iter(counter)
             env_ranges = self._env_command_ranges(
@@ -836,7 +846,7 @@ class Go2Env:
         measured_heights = self._get_heights(sim, patch_data)
 
         # ---- termination (legged_robot.py:170-178) ----
-        term_f = state.contact_forces[:, list(self.termination_bodies), :]
+        term_f = state.contact_forces[:, self._termination_idx, :]
         contact_term = torch.any(
             torch.linalg.vector_norm(term_f, dim=-1) > 1.0, dim=1)
         if cfg.init_state.turn_over:
@@ -981,8 +991,9 @@ class Go2Env:
             torque_limits=self.torque_limits,
             tracking_sigma_lin=sig_lin, tracking_sigma_ang=sig_ang,
             dt=self.dt, cfg=cfg.rewards,
-            penalized_bodies=self.penalized_bodies,
-            termination_bodies=self.termination_bodies,
+            penalized_bodies=self._penalized_idx,
+            termination_bodies=self._termination_idx,
+            hip_idx=self._hip_idx,
         )
 
         total = torch.zeros(N, device=dev)

@@ -49,9 +49,11 @@ class RewardContext(NamedTuple):
     tracking_sigma_ang: torch.Tensor  # (N,)
     dt: float
     cfg: object                       # RewardsCfg (static)
-    penalized_bodies: tuple           # body indices with contact penalty
-    termination_bodies: tuple
-    hip_idx: tuple = (0, 3, 6, 9)
+    # body / joint indices: long tensors on the device, so that a step
+    # copies nothing from the host
+    penalized_bodies: torch.Tensor    # body indices with contact penalty
+    termination_bodies: torch.Tensor
+    hip_idx: torch.Tensor             # hip joint indices (0, 3, 6, 9)
 
 
 def _norm(x, dim):
@@ -102,7 +104,7 @@ def action_rate(c):
 
 
 def collision(c):
-    f = c.contact_forces[:, list(c.penalized_bodies), :]
+    f = c.contact_forces[:, c.penalized_bodies, :]
     return torch.sum((_norm(f, -1) > 0.1).to(torch.float32), dim=1)
 
 
@@ -206,14 +208,14 @@ def legs_distance(c):
 
 def hip_to_default(c):
     """Go2 extra (go2_env.py:55-60)."""
-    idx = list(c.hip_idx)
+    idx = c.hip_idx
     return torch.sum(torch.abs(c.dof_pos[:, idx] - c.default_dof_pos[idx]),
                      dim=1)
 
 
 def x_command_hip_regular(c):
     """Go2 extra (go2_env.py:62-68)."""
-    hip = c.dof_pos[:, list(c.hip_idx)]
+    hip = c.dof_pos[:, c.hip_idx]
     ratio = (torch.abs(c.commands[:, 0])
              / (_norm(c.commands[:, :3], 1) + 1e-9))
     rew = torch.abs(hip[:, 0] + hip[:, 1]) + torch.abs(hip[:, 2] + hip[:, 3])

@@ -8,7 +8,9 @@ attrs num_envs/num_obs/num_privileged_obs/num_actions/max_episode_length/
 episode_length_buf/extras. The training path uses the functional API
 directly; this wrapper serves reference-style runners and custom eval loops.
 
-Randomness: the integer `seed` seeds one torch.Generator; every `reset`
+`step` runs `env.step` as one CUDA graph on the card (`utils/graphs.py`
+`EnvStep`, the JAX adapter's `jax.jit(env.step)`) and returns copies of its
+outputs. Randomness: the integer `seed` seeds one torch.Generator; every `reset`
 draws the seed of the env's next init state from it. `device` (the card by
 default) must be the env's device; it raises otherwise, as the runner does.
 """
@@ -18,6 +20,7 @@ import torch
 
 from go2_rl_gym_tpu_torch.device import resolve_device
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+from go2_rl_gym_tpu_torch.utils import graphs
 
 
 class VecEnvAdapter:
@@ -35,6 +38,7 @@ class VecEnvAdapter:
         self.extras = {}
         self._gen = torch.Generator()
         self._gen.manual_seed(seed)
+        self._step = graphs.EnvStep(env)
         self._state = None
         self._obs = None
         self._priv = None
@@ -64,7 +68,8 @@ class VecEnvAdapter:
     def step(self, actions):
         actions = torch.as_tensor(actions, dtype=torch.float32,
                                   device=self.device)
-        self._state, out = self.env.step(self._state, actions)
+        self._state, out = self._step(self._state, actions)
+        out = graphs.copy_tree(out)
         self._obs, self._priv = out.obs, out.privileged_obs
         self.extras = {"episode": out.metrics, "time_outs": out.time_outs}
         return out.obs, out.privileged_obs, out.rew, out.done, self.extras

@@ -3,6 +3,9 @@ checkpoint's policy.
 
 Counterpart of scripts/play.py of the JAX package. Two modes:
 
+On the card `env.step` runs as one CUDA graph (`utils/graphs.py`
+`EnvStep`, the JAX play's `jax.jit(env.step)`); the policy runs eagerly.
+
 * the committed policy (`play`): the student encoder reads the obs
   history, the actor's mean `mu` drives `env.step`, the history is zeroed on
   done and shifted, and the command is held at [1, 0, 0] (play.py:82-104).
@@ -41,6 +44,7 @@ from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
 from go2_rl_gym_tpu_torch.export import exporter
 from go2_rl_gym_tpu_torch.export.importer import load_pt_policy
+from go2_rl_gym_tpu_torch.utils import graphs
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
 from go2_rl_gym_tpu_torch.utils import registry
 from go2_rl_gym_tpu_torch.utils.helpers import get_load_path
@@ -65,11 +69,11 @@ def play_cfg(num_envs: int) -> Go2Cfg:
 
 
 @torch.no_grad()
-def policy_step(model, env: Go2Env, state, obs, history):
-    """One deterministic step: hold the command, mu -> env.step, zero the
-    history on done and append the new obs. `mu` is the CTS student's
-    (`s_latent` on the history, then `dist`) or, for PPO's `ActorCritic`,
-    the actor's on the obs."""
+def policy_step(model, env: Go2Env, state, obs, history, step=None):
+    """One deterministic step: hold the command, mu -> env.step (or `step`,
+    a `graphs.EnvStep` of it), zero the history on done and append the new
+    obs. `mu` is the CTS student's (`s_latent` on the history, then `dist`)
+    or, for PPO's `ActorCritic`, the actor's on the obs."""
     N = env.num_envs
     cmd = torch.tensor(COMMAND, dtype=torch.float32, device=env.device)
     state = state._replace(commands=torch.cat(
@@ -79,7 +83,7 @@ def policy_step(model, env: Go2Env, state, obs, history):
         mu, _, _ = model.dist(latent, obs)
     else:
         mu, _ = model.actor_dist(obs)
-    state, out = env.step(state, mu)
+    state, out = (step or env.step)(state, mu)
     history = torch.where(out.done[:, None, None], 0.0, history)
     history = torch.cat([history[:, 1:], out.obs[:, None]], dim=1)
     return state, out, history
@@ -108,11 +112,13 @@ def play(policy: str = DEFAULT_POLICY, num_envs: int = 4096, steps: int = 24,
         latent, _ = model.s_latent(history.reshape(env.num_envs, -1))
         model.dist(latent, obs)
     rews, dones, finite = [], [], []
+    step = graphs.EnvStep(env)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     for _ in range(steps):
-        state, out, history = policy_step(model, env, state, obs, history)
+        state, out, history = policy_step(model, env, state, obs, history,
+                                          step)
         obs = out.obs
         rews.append(out.rew.mean())
         dones.append(out.done.to(torch.float32).mean())
@@ -179,8 +185,10 @@ def play_checkpoint(task: str = "go2_moe_cts", experiment_name=None,
     # inference rollout with the command held at [1, 0, 0] (play.py:54-62)
     state, obs, history = rs.env_state, rs.obs, rs.history
     rews, finite = [], []
+    step = graphs.EnvStep(env)
     for _ in range(steps):
-        state, out, history = policy_step(model, env, state, obs, history)
+        state, out, history = policy_step(model, env, state, obs, history,
+                                          step)
         obs = out.obs
         rews.append(out.rew.mean())
         finite.append(torch.isfinite(out.obs).all()

@@ -4,7 +4,9 @@ Counterpart of reference legged_gym/scripts/train.py + the CLI flag schema
 of legged_gym/utils/helpers.py:128-157. Builds the task's env and runner on
 `--device` (the card by default), starts every env at a random episode
 length, optionally resumes the latest (or a named) checkpoint of the
-experiment, and runs `learn`. Every registered task trains (PPO `go2`,
+experiment, and runs `learn` (on the card: one CUDA graph of the train
+iteration, replayed in chunks; `--debug_nans` runs it eagerly and raises at
+the first non-finite value). Every registered task trains (PPO `go2`,
 recurrent PPO `go2_lstm`, the six CTS tasks, the three ablation variants;
 `utils.registry.task_names()`). With `--eval_interval N`, rank 0 exports
 the policy every N iterations and scores it in MuJoCo in the background
@@ -55,6 +57,10 @@ def get_args(argv=None):
                    help="torch device of the env, the policy and the update")
     p.add_argument("--headless", action="store_true", help="accepted for CLI "
                    "parity with the reference; rendering is always off")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="run learn eagerly under autograd anomaly detection "
+                        "and raise at the first iteration with a non-finite "
+                        "metric, state or parameter (slow; for debugging)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of iterations 10-12")
     p.add_argument("--eval_interval", type=int, default=0,
@@ -99,6 +105,7 @@ def main(argv=None):
                                   log_root=args.log_root,
                                   run_name=args.run_name, device=device,
                                   eval_interval=args.eval_interval)
+    runner.debug_nans = args.debug_nans
     rs = runner.init_runner_state(train_cfg.seed, init_at_random_ep_len=True)
     if args.resume:
         path = get_load_path(os.path.join(args.log_root,

@@ -66,15 +66,13 @@ def _terrain_normal_t(terrain: TerrainData, x, y):
     return normal_at(terrain, x, y, dim=-2)
 
 
-def _fk(layout: QuadLayout, s: TState):
-    """World kinematics, leg-batched, T layout.
+def _fk(layout: QuadLayout, s: TState, st):
+    """World kinematics, leg-batched, T layout. `st`, a `_Static`, holds the
+    layout's tensors on the device.
 
     Returns R (13,3,3,N), p (13,3,N), w (13,3,N), v (13,3,N),
     axis_w (12,3,N), jpos (12,3,N)."""
-    dev = s.pos.device
-    axes = np.asarray(layout.axes, np.float32)          # (L,D,3)
-    axes_t = _f32(axes, dev)
-    origins = _f32(layout.origins, dev)[..., None]      # (L,D,3,1)
+    axes_t, origins = st.axes, st.origins
     q = s.q.reshape(NLEG, DEPTH, -1)
     qd = s.qd.reshape(NLEG, DEPTH, -1)
 
@@ -87,7 +85,7 @@ def _fk(layout: QuadLayout, s: TState):
 
     Rs, ps, ws, vs, aw = [], [], [], [], []
     for d in range(DEPTH):
-        Rj = tm.rodrigues(axes[:, d], q[:, d])          # (L,3,3,N)
+        Rj = tm.rodrigues(axes_t[:, d], q[:, d])        # (L,3,3,N)
         r_w = tm.mv(Rp, origins[:, d].expand(NLEG, 3, N))
         axis_w = tm.mv(Rp, axes_t[:, d][..., None].expand(NLEG, 3, N))
         Rc = tm.mm(Rp, Rj)
@@ -182,15 +180,14 @@ def _structured_solve(si: TInertia, rhs):
 
 
 def _mass_matrix_and_bias(layout, params: SimParams, dyn_t, s: TState,
-                          damping_eff):
-    """Leg-batched body-frame CRBA + RNEA in T layout.
+                          damping_eff, st):
+    """Leg-batched body-frame CRBA + RNEA in T layout. `st`, a `_Static`,
+    holds the layout's tensors and the gravity vector on the device.
 
     dyn_t: dict(mass (13,N), com (13,3,N), inertia (13,3,3,N)).
     Returns (TInertia, bias (18,N), Rbase (3,3,N))."""
     dev = s.pos.device
-    axes = np.asarray(layout.axes, np.float32)
-    axes_t = _f32(axes, dev)
-    origins = _f32(layout.origins, dev)[:, :, :, None]
+    axes_t, origins = st.axes, st.origins
     q = s.q.reshape(NLEG, DEPTH, -1)
     qd = s.qd.reshape(NLEG, DEPTH, -1)
     N = s.pos.shape[-1]
@@ -214,7 +211,7 @@ def _mass_matrix_and_bias(layout, params: SimParams, dyn_t, s: TState,
     vp = v_base.expand(NLEG, 6, N)
     zeros3 = torch.zeros((NLEG, 3, N), device=dev)
     for d in range(DEPTH):
-        Rj = tm.rodrigues(axes[:, d], q[:, d])
+        Rj = tm.rodrigues(axes_t[:, d], q[:, d])
         Ed = tm.transpose(Rj)
         rd = origins[:, d]                               # (L,3,1)
         E.append(Ed)
@@ -228,8 +225,7 @@ def _mass_matrix_and_bias(layout, params: SimParams, dyn_t, s: TState,
         vp = vd
 
     # RNEA (qdd=0, gravity as base acceleration)
-    g_base = tm.mtv(Rbase, torch.tensor([0.0, 0.0, params.gravity],
-                                        device=dev)[:, None].expand(3, N))
+    g_base = tm.mtv(Rbase, st.gravity[:, None].expand(3, N))
     a_base = torch.cat([torch.zeros((3, N), device=dev), -g_base], dim=0)
     a = []
     ap = a_base.expand(NLEG, 6, N)
@@ -298,9 +294,15 @@ class _Static(NamedTuple):
     anc_g: torch.Tensor          # (G,12) ancestry of each geom's body
     report_w: torch.Tensor       # (G,) 1 for geoms reported per body, 0 feet
     foot_idx: torch.Tensor       # (4,) long
+    axes: torch.Tensor           # (L,D,3) joint axes in the child frame
+    origins: torch.Tensor        # (L,D,3,1) joint origins in the parent frame
+    gravity: torch.Tensor        # (3,) [0, 0, params.gravity]
+    ref_z: torch.Tensor          # (3,1) tangent-basis reference [0, 0, 1]
+    ref_x: torch.Tensor          # (3,1) its fallback [1, 0, 0]
 
 
-def _static(model: RobotModel, layout: QuadLayout, device) -> _Static:
+def _static(model: RobotModel, layout: QuadLayout, device,
+            gravity: float = SimParams().gravity) -> _Static:
     gb = np.asarray(model.geom_body)
     # Feet are separate rigid bodies in the reference (go2.urdf marks the
     # foot joints dont_collapse); the parser merges foot geoms into the calf
@@ -318,7 +320,12 @@ def _static(model: RobotModel, layout: QuadLayout, device) -> _Static:
         dof_upper=_f32(model.dof_upper, device)[:, None],
         anc_g=_f32(np.asarray(layout.anc_mask, np.float32)[gb], device),
         report_w=_f32(report, device),
-        foot_idx=torch.as_tensor(np.asarray(model.foot_geom_idx), **long))
+        foot_idx=torch.as_tensor(np.asarray(model.foot_geom_idx), **long),
+        axes=_f32(layout.axes, device),
+        origins=_f32(layout.origins, device)[..., None],
+        gravity=_f32([0.0, 0.0, gravity], device),
+        ref_z=_f32([0.0, 0.0, 1.0], device)[:, None],
+        ref_x=_f32([1.0, 0.0, 0.0], device)[:, None])
 
 
 def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
@@ -333,9 +340,10 @@ def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
     K = params.num_contacts
     N = s.pos.shape[-1]
     dev = s.pos.device
-    st = static if static is not None else _static(model, layout, dev)
+    st = (static if static is not None
+          else _static(model, layout, dev, params.gravity))
 
-    R, p, w, vlin, axis_w, jpos = _fk(layout, s)
+    R, p, w, vlin, axis_w, jpos = _fk(layout, s, st)
 
     # geoms
     gb = st.geom_body
@@ -355,7 +363,7 @@ def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
         params.joint_limit_stiffness * dt + params.joint_limit_damping)
 
     si, bias, Rbase = _mass_matrix_and_bias(layout, params, dyn_t, s,
-                                            damping_eff)
+                                            damping_eff, st)
     tau_gen = torch.cat([torch.zeros((6, N), device=dev), tau_tot], dim=0)
 
     # ---- contact candidates: top-K most penetrating ----
@@ -400,9 +408,7 @@ def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
     pen = torch.clamp(cgap, min=0.0)
 
     # tangent basis
-    ref = torch.where(torch.abs(n[:, 2:3, :]) < 0.9,
-                      torch.tensor([0., 0., 1.], device=dev)[:, None],
-                      torch.tensor([1., 0., 0.], device=dev)[:, None])
+    ref = torch.where(torch.abs(n[:, 2:3, :]) < 0.9, st.ref_z, st.ref_x)
     t1 = tm.cross(n, ref)
     t1 = t1 / (tm.norm(t1)[..., None, :] + 1e-9)
     t2 = tm.cross(n, t1)
@@ -524,7 +530,7 @@ def make_physics_step(model: RobotModel, params: SimParams,
     """
     layout = quad_layout(model)
     device = terrain.height.device
-    static = _static(model, layout, device)
+    static = _static(model, layout, device, params.gravity)
     effort = _f32(model.dof_effort_limit, device)[:, None]
     G = len(model.geom_body)
 

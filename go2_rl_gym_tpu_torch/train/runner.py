@@ -47,6 +47,7 @@ from go2_rl_gym_tpu_torch.env.go2_env import EnvState, Go2Env
 from go2_rl_gym_tpu_torch.export import exporter
 from go2_rl_gym_tpu_torch.train.eval_hook import AsyncEvaluator
 from go2_rl_gym_tpu_torch.train.metrics import MetricsWriter
+from go2_rl_gym_tpu_torch.utils import graphs
 
 
 class RunnerState(NamedTuple):
@@ -193,6 +194,12 @@ class OnPolicyRunner:
         self.evaluator = None
         if eval_interval and log_dir and self.is_main:
             self.evaluator = AsyncEvaluator(log_dir, scenes=eval_scenes)
+        # learn's execution (train_mode, compiled_step): with debug_nans,
+        # eagerly under anomaly detection, checked for non-finite values
+        self.debug_nans = False
+        self._compiled = None
+        self._mode_printed = False
+        self.metric_keys = self.metric_sizes = None
 
     def attach_mesh(self, mesh: mesh_lib.Mesh):
         """Switch to data-parallel execution as rank `mesh.rank` (JAX
@@ -413,79 +420,231 @@ class OnPolicyRunner:
 
     # ------------------------------------------------------------------
 
+    def train_mode(self):
+        """How `learn` runs the train step: ("graph", why) on the card
+        without a mesh, where one CUDA graph of the iteration is captured
+        and replayed (utils/graphs.py); else ("eager", why): on the CPU,
+        under a mesh (a rank's minibatch membership has data-dependent
+        sizes, read back once per update), or with `debug_nans`."""
+        if self.debug_nans:
+            return "eager", ("debug_nans: anomaly detection, checked per "
+                             "iteration")
+        if self.mesh is not None:
+            return "eager", (f"a mesh of {self.mesh.world} ranks: minibatch "
+                             f"membership is read back per update")
+        if self.device.type != "cuda":
+            return "eager", f"on {self.device}"
+        return "graph", f"one CUDA graph per iteration on {self.device}"
+
+    def compiled_step(self, rs: RunnerState):
+        """The in-place train step on `rs`'s values: a callable that runs
+        one iteration on fixed storage (its `step.state` holds the
+        RunnerState) and returns the iteration's metrics as one (T,) f32
+        vector in the JAX order (`metric_keys`, `metric_sizes`). On the
+        card, without a mesh or debug_nans, it is a `graphs.StepGraph`: the
+        first call runs eagerly (under the sync debug mode "error"),
+        captures, and later calls replay. It is made once per runner
+        and kept (made anew only for a state of another structure): a later
+        `rs` is loaded into its storage. The parameters, Adam states and
+        learning rates are updated in place (`load` and `reset_train_state`
+        write into them too), so they never move."""
+        mode, _ = self.train_mode()
+        made = self._compiled
+        if made is None or made[0] != mode or not graphs.same_structure(
+                made[1].state, rs):
+            def fn(r):
+                r, m = self.train_step(r)
+                if self.metric_keys is None:
+                    self.metric_keys, self.metric_sizes = \
+                        graphs.metric_layout(m)
+                return r, graphs.flat_metrics(self.metric_keys)(m)
+            inplace = graphs.InPlaceStep(fn, rs)
+            run = inplace
+            if mode == "graph":
+                run = graphs.StepGraph(inplace, "train_step")
+            self._compiled = made = (mode, inplace, run)
+        _, inplace, run = made
+        inplace.set_state(rs)
+        return run
+
+    def _check_finite(self, it, vec, state):
+        """debug_nans: raise at an iteration whose metrics, runner state or
+        parameters hold a non-finite value, naming it and them."""
+        bad = []
+        offs = np.cumsum([0] + self.metric_sizes)
+        ok = torch.isfinite(vec).cpu().numpy()
+        bad += [k for i, k in enumerate(self.metric_keys)
+                if not ok[offs[i]:offs[i + 1]].all()]
+        bad += ["state." + ".".join(map(str, p))
+                for p, x in graphs.leaves(state)
+                if isinstance(x, torch.Tensor) and x.is_floating_point()
+                and not bool(torch.isfinite(x).all())]
+        bad += [f"param.{k}" for k, p in self.alg.model.named_parameters()
+                if not bool(torch.isfinite(p).all())]
+        if bad:
+            raise FloatingPointError(f"iteration {it}: non-finite {bad}")
+
     def learn(self, rs: RunnerState, num_iterations: int,
               log_every: int = 10, print_every: int = 50) -> RunnerState:
-        """`num_iterations` train iterations from `current_iteration`. The
-        metrics of an iteration reach the host once, as one stacked tensor.
+        """`num_iterations` train iterations from `current_iteration` (JAX
+        runner.py:337-463): iterations run in chunks of min(log_every,
+        num_iterations), each cut to end where a save or an eval is due, so
+        that checkpoint names and eval iterations are those of one iteration
+        at a time. On the card a chunk is replays of the iteration's CUDA
+        graph (`compiled_step`; the first iteration of the runner is the
+        eager warm-up, and capture executes nothing, so `learn` runs exactly
+        `num_iterations` iterations), each writing its metrics into a row of
+        one (chunk, T) buffer that is copied to pinned host memory once per
+        chunk; the previous chunk's metrics are processed on the host while
+        the current chunk runs, and `learn` blocks only at saves, evals and
+        the end. `GO2_SYNC_TRAIN=1` runs one iteration per chunk and blocks
+        after each. On the CPU, under a mesh or with `debug_nans` the same
+        loop runs the in-place step eagerly.
+
         Logs every `log_every` iterations (and the last), prints every
         `print_every`, saves model_<it>.pt after iteration <it> when <it> is
-        a multiple of save_interval, and the final model_<end>.pt (JAX
-        runner.py:337-463, without its chunked dispatch). With an evaluator
-        (CTS only), exports jit_models/policy_jit_<it>.pt after iteration
-        <it> when <it> is a multiple of eval_interval and after the last,
-        submits each to the evaluator, logs its scores as Eval/* as they
-        arrive, and waits up to 600 s for the outstanding ones at the end.
-        Saves and exports are left out of the iteration's timing."""
+        a multiple of save_interval, and the final model_<end>.pt. With an
+        evaluator (CTS only), exports jit_models/policy_jit_<it>.pt after
+        iteration <it> when <it> is a multiple of eval_interval and after
+        the last, submits each to the evaluator, logs its scores as Eval/*
+        as they arrive, and waits up to 600 s for the outstanding ones at
+        the end. Iteration times are per chunk, as in the JAX loop, with
+        saves and exports left out. Returns a copy of the final state."""
         rewbuffer = deque(maxlen=100)
         lenbuffer = deque(maxlen=100)
         srewbuffer = deque(maxlen=100)
         slenbuffer = deque(maxlen=100)
         start_iter = self.current_iteration
         tot_iter = start_iter + num_iterations
+        # GO2_SYNC_TRAIN=1: one iteration per chunk, blocking after each
+        # (the JAX package's A/B instrument)
+        sync_mode = os.environ.get("GO2_SYNC_TRAIN", "") == "1"
+        chunk = 1 if sync_mode else max(1, min(log_every, num_iterations))
+        mode, why = self.train_mode()
+        if self.is_main and not self._mode_printed:
+            print(f"learn: {mode} ({why})", flush=True)
+            self._mode_printed = True
+        step = self.compiled_step(rs)
+        state = step.state
+        pinned = self.device.type == "cuda"
+
+        def run_chunk(first_it, c):
+            """Enqueue `c` iterations; returns their (c, T) metrics in host
+            memory (pinned, filled asynchronously) and the event after
+            which they are there."""
+            mat = None
+            for j in range(c):
+                if self.debug_nans:
+                    try:
+                        with torch.autograd.set_detect_anomaly(True):
+                            vec = step()
+                    except RuntimeError as e:
+                        raise FloatingPointError(
+                            f"iteration {first_it + j}: {e}") from e
+                    self._check_finite(first_it + j, vec, state)
+                else:
+                    vec = step()
+                if mat is None:
+                    mat = torch.empty((c, vec.numel()), device=vec.device)
+                mat[j].copy_(vec)
+            if not pinned:
+                return mat.numpy(), None
+            host = torch.empty(mat.shape, pin_memory=True)
+            host.copy_(mat, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            return host, done
+
+        t_window = time.time()
+
+        def _process(first_it, c, host, done):
+            """Wait for one chunk's metrics and run the per-iteration
+            stats / log / print bookkeeping."""
+            nonlocal t_window
+            if done is not None:
+                done.synchronize()
+                host = host.numpy()
+            now = time.time()
+            dt_iter = (now - t_window) / c
+            self.tot_time += now - t_window
+            t_window = now
+            sizes = self.metric_sizes
+            offs = np.cumsum([0] + sizes)
+            for j in range(c):
+                pit = first_it + j
+                row = host[j]
+                pmetrics = {k: row[offs[i]] if sizes[i] == 1
+                            else row[offs[i]:offs[i + 1]]
+                            for i, k in enumerate(self.metric_keys)}
+                ep = pmetrics.pop("ep_stats")
+                if ep[2] > 0:
+                    rewbuffer.append(ep[0] / ep[2])
+                    lenbuffer.append(ep[1] / ep[2])
+                if self.is_cts and ep[5] > 0:
+                    srewbuffer.append(ep[3] / ep[5])
+                    slenbuffer.append(ep[4] / ep[5])
+                if self.writer and (pit % log_every == 0
+                                    or pit == tot_iter - 1):
+                    self._log(pit, dict(pmetrics), dt_iter, rewbuffer,
+                              lenbuffer, srewbuffer, slenbuffer)
+                if self.is_main and pit % print_every == 0:
+                    fps = int(self.num_steps * self.env.num_envs_global
+                              / dt_iter)
+                    mr = np.mean(rewbuffer) if rewbuffer else float("nan")
+                    print(
+                        f"it {pit}/{tot_iter} | {fps} steps/s | "
+                        f"mean_rew {mr:.3f} | "
+                        f"vloss {float(pmetrics.get('value_loss', 0)):.4f} | "
+                        f"surr "
+                        f"{float(pmetrics.get('surrogate_loss', 0)):.4f}",
+                        flush=True)
+
         do_save = bool(self.log_dir and self.save_interval)
         do_eval = bool(self.evaluator is not None and self.is_cts
                        and self.eval_interval)
-        keys = sizes = None
-        t_window = time.time()
-        for it in range(start_iter, tot_iter):
-            rs, m = self.train_step(rs)
-            if keys is None:
-                keys = sorted(m)
-                sizes = [m[k].numel() for k in keys]
-                offs = np.cumsum([0] + sizes)
-            row = torch.cat([m[k].to(torch.float32).reshape(-1)
-                             for k in keys]).cpu().numpy()
-            self.tot_timesteps += self.num_steps * self.env.num_envs_global
-            self.current_iteration = it + 1
-            now = time.time()
-            dt_iter = now - t_window
-            self.tot_time += dt_iter
-            t_window = now
-            pmetrics = {k: row[offs[i]] if sizes[i] == 1
-                        else row[offs[i]:offs[i + 1]]
-                        for i, k in enumerate(keys)}
-            ep = pmetrics.pop("ep_stats")
-            if ep[2] > 0:
-                rewbuffer.append(ep[0] / ep[2])
-                lenbuffer.append(ep[1] / ep[2])
-            if self.is_cts and ep[5] > 0:
-                srewbuffer.append(ep[3] / ep[5])
-                slenbuffer.append(ep[4] / ep[5])
-            if self.writer and (it % log_every == 0 or it == tot_iter - 1):
-                self._log(it, dict(pmetrics), dt_iter, rewbuffer, lenbuffer,
-                          srewbuffer, slenbuffer)
-            if self.is_main and it % print_every == 0:
-                fps = int(self.num_steps * self.env.num_envs_global / dt_iter)
-                mr = np.mean(rewbuffer) if rewbuffer else float("nan")
-                print(
-                    f"it {it}/{tot_iter} | {fps} steps/s | "
-                    f"mean_rew {mr:.3f} | "
-                    f"vloss {float(pmetrics.get('value_loss', 0)):.4f} | "
-                    f"surr "
-                    f"{float(pmetrics.get('surrogate_loss', 0)):.4f}",
-                    flush=True)
-            need_save = do_save and it % self.save_interval == 0
-            need_eval = do_eval and it % self.eval_interval == 0
+
+        def _next_boundary(i):
+            """The earliest iteration >= i after which a save or an eval is
+            due: a chunk ends there, so that model_<it> holds the parameters
+            after iteration <it>, as in the per-iteration loop."""
+            b = tot_iter - 1
+            if do_save:
+                b = min(b, i + (-i) % self.save_interval)
+            if do_eval:
+                b = min(b, i + (-i) % self.eval_interval)
+            return b
+
+        prev = None               # (first_it, c, host metrics, event)
+        it = start_iter
+        while it < tot_iter:
+            c = min(chunk, tot_iter - it, _next_boundary(it) - it + 1)
+            host, done = run_chunk(it, c)
+            self.tot_timesteps += self.num_steps * self.env.num_envs_global * c
+            first_it, last_it = it, it + c - 1
+            it += c
+            self.current_iteration = it
+            need_save = do_save and last_it % self.save_interval == 0
+            need_eval = do_eval and last_it % self.eval_interval == 0
+            # the previous chunk's metrics while this one runs on the card
+            if prev is not None:
+                _process(*prev)
+            prev = (first_it, c, host, done)
+            if need_save or need_eval or sync_mode or it >= tot_iter:
+                _process(*prev)
+                prev = None
             if need_save:
-                self.save(rs, os.path.join(self.log_dir, f"model_{it}.pt"))
+                self.save(state, os.path.join(self.log_dir,
+                                              f"model_{last_it}.pt"))
             if need_eval:
-                self._submit_eval(it)
-            if self.evaluator is not None:
+                self._submit_eval(last_it)
+            if prev is None and self.evaluator is not None:
                 self._log_eval(self.evaluator.poll())
             if need_save or need_eval:
                 t_window = time.time()   # exclude save/eval from timing
+        if prev is not None:
+            _process(*prev)
         if self.log_dir:
-            self.save(rs, os.path.join(
+            self.save(state, os.path.join(
                 self.log_dir, f"model_{self.current_iteration}.pt"))
         if self.evaluator is not None:
             if self.is_cts:
@@ -493,7 +652,7 @@ class OnPolicyRunner:
             # block for the final model's score (reference
             # on_policy_runner.py:271-291)
             self._log_eval(self.evaluator.wait_all(timeout=600))
-        return rs
+        return graphs.copy_tree(state)
 
     def _submit_eval(self, it: int):
         """Export the policy as jit_models/policy_jit_<it>.pt and submit it

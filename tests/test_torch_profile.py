@@ -155,8 +155,9 @@ def _last_json(text):
 
 
 def test_ops_physics_on_the_cpu(capsys):
-    res = pr.main(["--ops", "physics", "--device", "cpu", "--num_envs", "16",
-                   "--iters", "1", "--top", "10"])
+    argv = ["--ops", "physics", "--device", "cpu", "--num_envs", "16",
+            "--iters", "1", "--top", "10"]
+    res = pr.main(argv)
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("total host self time:")
     assert json.loads(lines[-1]) == res
@@ -172,11 +173,22 @@ def test_ops_physics_on_the_cpu(capsys):
     rows = res["rows"]
     assert [r["ms"] for r in rows] == sorted((r["ms"] for r in rows),
                                              reverse=True)
-    for r in rows[:5]:
-        assert r["source"].startswith("sim/"), r
-        path, line = r["source"].rsplit(":", 1)
+    # the ranking by the median of 3 tables: one preemption of the host
+    # inside some op of one call (a few ms, where the 5th row reads ~1 ms)
+    # does not move it
+    runs = [rows] + [pr.main(argv)["rows"] for _ in range(2)]
+    capsys.readouterr()
+    ms = {}
+    for run in runs:
+        for r in run:
+            ms.setdefault((r["name"], r["source"]), []).append(r["ms"])
+    median = {k: sorted(v + [0.0] * (3 - len(v)))[1] for k, v in ms.items()}
+    top = sorted(median, key=lambda k: -median[k])[:5]
+    for name, source in top:
+        assert source.startswith("sim/"), (name, source, ms[name, source])
+        path, line = source.rsplit(":", 1)
         assert path.endswith(".py") and int(line) > 0
-        assert r["name"].startswith("aten::") and r["ms"] > 0
+        assert name.startswith("aten::") and median[name, source] > 0
 
 
 def test_decompose_on_the_cpu(capsys):
