@@ -90,19 +90,43 @@ Phases (any failure exits non-zero and prints no result line):
    for go2_moe_cts, go2, go2_lstm and go2_fast_flat_move at 4096 envs, from
    one state at random episode lengths, with deterministic algorithms on
    (warn_only: each op that has no deterministic version is named), K = 3
-   eager train_steps twice (the eager-vs-eager spread) and K = 3 graphed
-   (the eager warm-up under the sync debug mode "error", the capture, 2
-   replays). The graphed run's parameters, Adam states, learning rates,
-   RunnerState and stacked metrics must lie within the spread, both
-   printed; every generator's state must equal the eager run's; 1 capture
-   per runner; 24 patch launches in the warm-up and 24 captured on rough
-   terrain, 0 on the plane, none from the replays. A save after the
-   replays, loaded into an eager runner, gives the next iteration equal to
-   the graphed one's. Then, on a runner of its own with deterministic
-   algorithms off, as learn runs: capture + instantiate s, the graph
-   pool's bytes, and host ms and env-steps/s per iteration of eager and
-   graphed iterations alternating, with the device ms of each replay (CUDA
-   events) and the host ms of the replay call.
+   eager train_steps and K = 3 graphed (the eager warm-up under the sync
+   debug mode "error", the capture, 2 replays). The graphed run's
+   parameters, Adam states, learning rates, RunnerState and stacked
+   metrics must equal the eager run's bit for bit (0.0, printed), and so
+   must every generator's state; 1 capture per runner; 24 patch launches
+   in the warm-up and 24 captured on rough terrain, 0 on the plane, none
+   from the replays. A save after the replays, loaded into an eager
+   runner, gives the next iteration equal to the graphed one's. Then, on a
+   runner of its own with deterministic algorithms off, as learn runs:
+   capture + instantiate s, the graph pool's bytes, and host ms and
+   env-steps/s per iteration of 2 eager and graphed iterations
+   alternating, with the device ms of each replay (CUDA events) and the
+   host ms of the replay call.
+   Train ddp graph (the compiled step under a mesh, after 9:
+   mesh.make_sharded_train_step, OnPolicyRunner.compiled_step under
+   NCCL): torch.cuda.device_count() NCCL ranks under torch.distributed.run
+   run the check worker's "graph" job. (a) go2_moe_cts at 4096 global envs
+   on the flagship terrain from random episode lengths: K = 3 eager
+   train_steps and K = 3 of the compiled step (warm-up, capture, 2
+   replays), deterministic algorithms on, must be equal bit for bit (0.0)
+   on every rank in parameters, both Adam states, learning rates, the
+   RunnerState with its generators and the stacked metrics; the mode must
+   be "graph", 1 capture per rank, 24 patch launches at warm-up, 24 at
+   capture, 0 in the replays, and every rank's parameters must equal rank
+   0's. Then 2 eager (deterministic algorithms off) / graphed (the graph
+   as captured, with them on) pairs alternating: per-rank and total
+   env-steps/s (host clock ending in a synchronize) and the device ms of each replay (CUDA
+   events); capture s and pool bytes; the update's all_gather alone (its
+   bytes, device ms by CUDA events); the NCCL kernels and memcpy nodes of
+   one replay under torch.profiler; then learn(rs, 3) on the same runner
+   under the mesh (with saves under build/) must print "learn: graph (...)"
+   and log finite metrics on rank 0. (b) go2_lstm at 1024 global envs, 2
+   iterations each way: the same checks (the recurrent shares). (c) The
+   reference for the mesh's cost: go2_moe_cts at 4096 envs in one
+   process's runner (no mesh) on each rank's card, 1 iteration each way
+   (the same checks), then one eager / graphed pair and one profiled
+   replay, printed beside (a)'s.
    For 5 to 11 every launch count is set to 0 just before each run and
    read just after (in the ranks' processes for 9); each eager
    rough-terrain policy step launches the patch kernel once (24 per eager
@@ -144,8 +168,10 @@ Phases (any failure exits non-zero and prints no result line):
 14. Graft (go2_rl_gym_tpu_torch/graft_entry.py): entry()'s forward (the
    go2_moe_cts student at batch 256) on the card against the CPU on the
    same weights and seeded inputs within 1e-5; dryrun_multichip over
-   torch.cuda.device_count() NCCL ranks (world 1 on one card): finite
-   metrics, 4 patch launches per rank (one per policy step).
+   torch.cuda.device_count() NCCL ranks (world 1 on one card), through the
+   compiled step, which must be a CUDA graph on every rank: finite
+   metrics, 8 patch launches per rank (one per policy step in the warm-up
+   and in the capture, none in the replay).
 15. Print one JSON line listing every kernel, then the device line.
 
 """
@@ -554,38 +580,12 @@ def phase_train(task="go2_moe_cts", iterations=2):
 
 GRAPH_TASKS = ("go2_moe_cts", "go2", "go2_lstm", "go2_fast_flat_move")
 GRAPH_K = 3                     # iterations per run of phase train graph
-GRAPH_TIMED = 3                 # alternating eager / graphed timed pairs
-# the algorithms' train state besides the parameters: PPO's or CTS's
-TRAIN_STATE = ("opt", "opt1", "opt2", "lr", "lr2")
-
-
-def _state_of(runner, rs, rows):
-    """A run's end state by category: the parameters, the Adam moments and
-    counts, the learning rates, the RunnerState's tensors, the stacked
-    metrics, and the generators' states."""
-    import torch
-    from go2_rl_gym_tpu_torch.utils import graphs
-    alg = runner.alg
-    out = {"params": {k: p.detach().clone()
-                      for k, p in alg.model.named_parameters()},
-           "adam": {}, "lr": {}, "runner_state": {}, "generators": {}}
-    for n in (n for n in TRAIN_STATE if hasattr(alg, n)):
-        for path, x in graphs.leaves(getattr(alg, n)):
-            key = ".".join(map(str, (n,) + path))
-            out["lr" if n.startswith("lr") else "adam"][key] = x.clone()
-    for path, x in graphs.leaves(rs):
-        key = ".".join(map(str, path))
-        if isinstance(x, torch.Generator):
-            out["generators"][key] = x.get_state()
-        else:
-            out["runner_state"][key] = x.clone()
-    out["metrics"] = {"stacked": torch.stack(rows)}
-    return out
+GRAPH_TIMED = 2                 # alternating eager / graphed timed pairs
 
 
 def _spread(a, b):
-    """Max |a - b| per category of two `_state_of`s (generators: 0.0 if
-    every state is equal, else inf)."""
+    """Max |a - b| per category of two `distributed.check.end_state`s
+    (generators: 0.0 if every state is equal, else inf)."""
     out = {}
     for cat in a:
         if cat == "generators":
@@ -604,6 +604,7 @@ def phase_train_graph():
     Returns the patch launches captured in the graphs."""
     import torch
     import warnings
+    from go2_rl_gym_tpu_torch.distributed import check
     from go2_rl_gym_tpu_torch.utils import graphs
     from go2_rl_gym_tpu_torch.utils import registry
 
@@ -623,7 +624,7 @@ def phase_train_graph():
             params0 = {k: p.detach().clone()
                        for k, p in alg.model.named_parameters()}
             owned0 = {n: graphs.copy_tree(getattr(alg, n))
-                      for n in TRAIN_STATE if hasattr(alg, n)}
+                      for n in check.TRAIN_STATE if hasattr(alg, n)}
             plane = env_cfg.terrain.mesh_type == "plane"
             steps = tc.runner.num_steps_per_env
 
@@ -645,12 +646,11 @@ def phase_train_graph():
                     rs, m = runner.train_step(rs)
                     rows.append(flat(m))
                 torch.cuda.synchronize()
-                return _state_of(runner, rs, rows)
+                return check.end_state(runner, rs, rows)
 
             with warnings.catch_warnings(record=True) as caught:
                 warnings.simplefilter("always")
                 e1 = eager_run()
-                e2 = eager_run()
             nondet = sorted({str(w.message).split(" does not have")[0]
                              for w in caught
                              if "deterministic" in str(w.message)})
@@ -673,21 +673,19 @@ def phase_train_graph():
                 rows.append(step().clone())
             torch.cuda.synchronize()
             replayed = launch_counts()["extract_patches"] - captured
-            g = _state_of(runner, step.state, rows)
+            g = check.end_state(runner, step.state, rows)
             captured_total += captured
 
-            spread, err = _spread(e1, e2), _spread(g, e1)
+            err = _spread(g, e1)
             print(f"train graph {task}: {GRAPH_K} iterations at {NUM_ENVS} "
-                  f"envs; max abs difference [graphed vs eager, eager vs "
-                  f"eager]: " + json.dumps(
-                      {k: [err[k], spread[k]] for k in err}))
+                  f"envs; max abs difference graphed vs eager: "
+                  + json.dumps(err))
             print(f"train graph {task}: ops without a deterministic "
                   f"implementation (torch.use_deterministic_algorithms "
                   f"warnings): {nondet}")
-            over = [k for k in err if err[k] > spread[k]]
+            over = [k for k in err if err[k] != 0.0]
             if over:
-                bad.append(f"{task}: graphed beyond the eager spread in "
-                           f"{over}")
+                bad.append(f"{task}: graphed differs from eager in {over}")
             if err["generators"] != 0.0:
                 bad.append(f"{task}: generator states differ")
             want = 0 if plane else steps
@@ -709,17 +707,17 @@ def phase_train_graph():
             runner.current_iteration = GRAPH_K
             runner.save(step.state, path)
             rows.append(step().clone())
-            g4 = _state_of(runner, step.state, rows[-1:])
+            g4 = check.end_state(runner, step.state, rows[-1:])
             other = registry.make_runner(task, env, tc)
             rs_o = other.load(other.init_runner_state(1), path)
             rs_o, m = other.train_step(rs_o)
-            e4 = _state_of(other, rs_o, [flat(m)])
+            e4 = check.end_state(other, rs_o, [flat(m)])
             os.remove(path)
             rt = _spread(g4, e4)
             print(f"train graph {task}: save after the replays, loaded into "
                   f"an eager runner, one more iteration: max abs difference "
                   f"to the graphed one's " + json.dumps(rt))
-            if any(rt[k] > spread[k] for k in rt):
+            if any(rt[k] != 0.0 for k in rt):
                 bad.append(f"{task}: save/load round trip {rt}")
             if step.captures != 1 or graphs.CAPTURES["train_step"] - caps0 != 1:
                 bad.append(f"{task}: {step.captures} captures")
@@ -780,31 +778,51 @@ def phase_train_graph():
 
 
 def run_ranks(cmds):
-    """Run the commands at once, each in its own process group, and wait;
-    kill every group on a failure or after RANK_TIMEOUT_S. Returns the
-    outputs; raises if any command failed."""
+    """Run the commands at once, each in its own session with its output
+    in a file under DDP_DIR (no pipe for a surviving child to hold), and
+    wait; after a failure or RANK_TIMEOUT_S every session gets SIGTERM
+    (torch.distributed.run then stops its workers, which run in sessions
+    of their own), and SIGKILL 30 s later. Returns the outputs; raises,
+    with each one's tail, if any command failed or timed out."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p]))
-    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True,
-                              start_new_session=True) for c in cmds]
+    os.makedirs(DDP_DIR, exist_ok=True)
+    logs = [os.path.join(DDP_DIR, f"cmd{i}.log") for i in range(len(cmds))]
+    procs = []
+    for c, log in zip(cmds, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(c, cwd=ROOT, env=env, stdout=f,
+                                          stderr=subprocess.STDOUT,
+                                          start_new_session=True))
     deadline = time.monotonic() + RANK_TIMEOUT_S
-    outs = []
+    timed_out = False
     try:
         for p in procs:
-            out, _ = p.communicate(timeout=max(1.0,
-                                               deadline - time.monotonic()))
-            outs.append(out)
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if p.returncode:
+                break
+    except subprocess.TimeoutExpired:
+        timed_out = True
     finally:
-        for p in procs:
-            if p.poll() is None:
+        live = [p for p in procs if p.poll() is None]
+        for p in live:
+            os.killpg(p.pid, signal.SIGTERM)
+        for p in live:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
                 os.killpg(p.pid, signal.SIGKILL)
-                p.communicate()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
     bad = [(p.returncode, out[-3000:]) for p, out in zip(procs, outs)
            if p.returncode]
-    if bad:
-        raise AssertionError(f"a rank failed: {bad}")
+    if bad or timed_out:
+        why = "timed out" if timed_out else "failed"
+        raise AssertionError(f"a rank {why}: {bad}")
     return outs
 
 
@@ -917,6 +935,123 @@ def phase_train_ddp():
         raise AssertionError("two ranks disagree with one process")
     return {"extract_patches": sum(r["launches"][-1]["extract_patches"]
                                    for r in res)}
+
+
+DDP_GRAPH_TIMED = 2             # eager / graphed pairs of train ddp graph
+DDP_GRAPH_LEARN = 3             # iterations of learn under the mesh
+DDP_GRAPH_LSTM_ENVS = 1024
+
+
+def phase_train_ddp_graph():
+    """The compiled train step under a mesh (see the module docstring):
+    torch.cuda.device_count() NCCL ranks of the check worker's "graph"
+    job. Returns the patch launches recorded in the ranks' captures."""
+    import torch
+
+    os.makedirs(DDP_DIR, exist_ok=True)
+    world = torch.cuda.device_count()
+    jobs = [dict(kind="graph", task="go2_moe_cts", num_envs=NUM_ENVS,
+                 iterations=GRAPH_K, timed=DDP_GRAPH_TIMED,
+                 learn=DDP_GRAPH_LEARN,
+                 log_root=os.path.join(DDP_DIR, "logs")),
+            dict(kind="graph", task="go2_lstm",
+                 num_envs=DDP_GRAPH_LSTM_ENVS, iterations=2),
+            # the reference for the mesh's cost: one process's graph of the
+            # same iteration on each rank's card, no collectives
+            dict(kind="graph", task="go2_moe_cts", num_envs=NUM_ENVS,
+                 iterations=1, timed=1, no_mesh=True)]
+    job_path = os.path.join(DDP_DIR, "graph_job.pt")
+    torch.save({"jobs": jobs}, job_path)
+    out = os.path.join(DDP_DIR, "graph")
+    [log] = run_ranks([[sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", f"--nproc_per_node={world}"]
+                       + worker(job_path, out, "nccl", "cuda")])
+    res = [torch.load(f"{out}.rank{r}", weights_only=True)
+           for r in range(world)]
+    bad, captured = [], 0
+    for i, job in enumerate(jobs):
+        task = job["task"]
+        for r in range(world):
+            rr = res[r][i]
+            err = _spread(rr["compiled"], rr["eager"])
+            launches = rr["launches"]
+            print(f"train ddp graph {task} rank {r}/{world} (nccl, "
+                  f"{rr['local_envs']} of {job['num_envs']} envs): mode "
+                  f"{rr['mode']}; {job['iterations']} iterations, max abs "
+                  f"difference graphed vs eager (deterministic algorithms "
+                  f"on): " + json.dumps(err) + f"; captures "
+                  f"{rr['captures']}, patch launches warm-up "
+                  f"{launches['warm_up']}, captured {launches['capture']}, "
+                  f"in {job['iterations'] - 1} replays "
+                  f"{launches['replays']}; capture + instantiate "
+                  f"{rr['capture_s']:.2f} s; graph pool {rr['pool_bytes']} "
+                  f"bytes; seconds " + json.dumps(
+                      {k: round(v, 1) for k, v in rr["seconds"].items()}))
+            if rr["mode"][0] != "graph" or not rr["graphed"]:
+                bad.append(f"{task} rank {r}: mode {rr['mode']}")
+            if any(v != 0.0 for v in err.values()):
+                bad.append(f"{task} rank {r}: graphed != eager {err}")
+            if rr["captures"] != 1:
+                bad.append(f"{task} rank {r}: {rr['captures']} captures")
+            steps = rr["steps"]
+            if (launches["warm_up"], launches["capture"],
+                    launches["replays"]) != (steps, steps, 0):
+                bad.append(f"{task} rank {r}: patch launches {launches}")
+            captured += launches["capture"]
+            # data-parallel: every rank holds rank 0's parameters
+            other = [k for k, v in rr["compiled"]["params"].items()
+                     if not torch.equal(v, res[0][i]["compiled"]["params"][k])]
+            if other:
+                bad.append(f"{task} rank {r}: parameters {other[:3]} differ "
+                           f"from rank 0's")
+    moe = [res[r][0] for r in range(world)]
+    steps, local = moe[0]["steps"], moe[0]["local_envs"]
+    for name, key in (("eager", "eager_ms"), ("graphed", "compiled_ms")):
+        per_rank = [[round(steps * local / (ms / 1e3), 1)
+                     for ms in rr["times"][key]] for rr in moe]
+        total = [round(steps * NUM_ENVS / (max(rr["times"][key][j]
+                                                for rr in moe) / 1e3), 1)
+                 for j in range(DDP_GRAPH_TIMED)]
+        print(f"train ddp graph go2_moe_cts {name}, alternating pairs (host "
+              f"ms ending in a synchronize; eager with deterministic "
+              f"algorithms off, the graph as captured with them on): "
+              f"ms per rank {[[round(v, 3) for v in rr['times'][key]] for rr in moe]}; "
+              f"env-steps/s per rank {per_rank}, total {total}")
+    for r, rr in enumerate(moe):
+        prof = rr["profiled"]
+        print(f"train ddp graph go2_moe_cts rank {r}: device ms of a replay "
+              f"(CUDA events) "
+              f"{[round(v, 3) for v in rr['times']['compiled_device_ms']]}; "
+              f"the update's gathers (one all_gather each, CUDA events over "
+              f"5): " + json.dumps(rr["gathers"]) + f"; one replay under "
+              f"torch.profiler: {prof['launches']} kernel launches, "
+              f"{prof['device_ms']:.3f} device ms, NCCL kernels and memcpy "
+              f"rows [name, count, ms]: " + json.dumps(
+                  prof["nccl_or_memcpy"]))
+    one = res[0][2]
+    print(f"train ddp graph go2_moe_cts without a mesh ({NUM_ENVS} envs in "
+          f"one process on rank 0's card): host ms of a graphed iteration "
+          f"{[round(v, 3) for v in one['times']['compiled_ms']]}, device ms "
+          f"{[round(v, 3) for v in one['times']['compiled_device_ms']]}; one "
+          f"replay under torch.profiler: {one['profiled']['launches']} kernel "
+          f"launches, {one['profiled']['device_ms']:.3f} device ms")
+    logged = moe[0]["learn"]
+    finite = bool(logged) and all(math.isfinite(v) for t in logged.values()
+                                  for v in t.values())
+    mode_line = [ln for ln in log.splitlines() if ln.startswith("learn: ")]
+    print(f"train ddp graph go2_moe_cts: learn(rs, {DDP_GRAPH_LEARN}) under "
+          f"the mesh printed {mode_line}; rank 0 logged {len(logged)} tags, "
+          f"all finite {finite}: " + json.dumps(
+              {k: logged[k] for k in ("Loss/value", "Loss/surrogate",
+                                      "Loss/latent")
+               if k in logged}))
+    if not mode_line or not mode_line[0].startswith("learn: graph ("):
+        bad.append(f"learn's mode line {mode_line}")
+    if not finite:
+        bad.append("learn under the mesh logged non-finite metrics")
+    if bad:
+        raise AssertionError(f"train ddp graph: {bad}")
+    return {"extract_patches": captured}
 
 
 def smoke_evaluator(log_dir):
@@ -1415,13 +1550,20 @@ def phase_graft():
     t = time.perf_counter()
     res = graft_entry.dryrun_multichip(world)
     launches = [r["launches"]["extract_patches"] for r in res]
+    graphed = [r["graphed"] for r in res]
     print(f"graft dryrun: nccl world {world}, "
           f"{max(8 * world, 16) // world} envs per rank, 2 x 9 terrain, "
           f"{graft_entry.DRYRUN_STEPS} steps, {time.perf_counter() - t:.1f} "
-          f"s with start-up; patch launches per rank {launches}; metrics "
+          f"s with start-up; the compiled step graphed per rank {graphed} "
+          f"(mode {res[0]['mode']}), called twice (warm-up + capture, one "
+          f"replay); patch launches per rank {launches}; metrics "
           + json.dumps({k: round(float(res[0]["metrics"][k]), 6) for k in
                         ("value_loss", "surrogate_loss", "latent_loss")}))
-    if launches != [graft_entry.DRYRUN_STEPS] * world:
+    if not all(graphed):
+        raise AssertionError(f"graft dryrun: not graphed {graphed}")
+    # the warm-up and the capture each launch once per policy step, the
+    # replay not at all
+    if launches != [2 * graft_entry.DRYRUN_STEPS] * world:
         raise AssertionError(f"graft dryrun: patch launches {launches}")
     return {"extract_patches": sum(launches)}
 
@@ -1478,6 +1620,7 @@ def main():
               ("export + eval", lambda: phase_export_eval(shared)),
               ("play checkpoint", lambda: phase_play_checkpoint(shared)),
               ("train ddp", phase_train_ddp),
+              ("train ddp graph", phase_train_ddp_graph),
               ("engine", phase_engine),
               ("profile", phase_profile),
               ("graft", phase_graft)]

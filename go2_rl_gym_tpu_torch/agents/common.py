@@ -123,6 +123,46 @@ def minibatch_step(mesh: Optional[mesh_lib.Mesh], loss, params,
                      max_grad_norm), lr
 
 
+def weighted_sum(x, weight=None, dim=None):
+    """`x` summed (over `dim`, else over everything), each sample scaled by
+    its `weight` where one is given (a minibatch share's 1 / 0 padding
+    mask, whose dims are x's leading dims)."""
+    if weight is not None:
+        x = x * weight.reshape(weight.shape + (1,) * (x.dim()
+                                                     - weight.dim()))
+    return x.sum() if dim is None else x.sum(dim=dim)
+
+
+def stack_fields(fields: Dict[str, torch.Tensor], lead: int):
+    """Tensors of one leading shape (`lead` dims) as one fp32 tensor
+    (*lead, F), their trailing dims flattened side by side. Returns it and
+    the layout that `split_fields` reads: (name, trailing shape) each."""
+    shape = next(iter(fields.values())).shape[:lead]
+    layout = [(k, tuple(v.shape[lead:])) for k, v in fields.items()]
+    return torch.cat([v.reshape(shape + (-1,)).to(torch.float32)
+                      for v in fields.values()], dim=-1), layout
+
+
+def gather_fields(mesh: Optional[mesh_lib.Mesh], fields, lead: int):
+    """The update's fields (name -> tensor whose `lead` leading dims are
+    this rank's samples) stacked (`stack_fields`) and gathered over the
+    ranks into one buffer of the global batch (`mesh_lib.gather_samples`,
+    one all_gather). Returns (samples (rows, F), layout)."""
+    samples, layout = stack_fields(fields, lead)
+    return mesh_lib.gather_samples(mesh, samples), layout
+
+
+def split_fields(x, layout):
+    """`stack_fields`' inverse on any leading dims: name -> a view of `x`'s
+    columns with its trailing shape."""
+    out, i = {}, 0
+    for k, tail in layout:
+        n = math.prod(tail)
+        out[k] = x[..., i:i + n].reshape(x.shape[:-1] + tail)
+        i += n
+    return out
+
+
 def surrogate_loss(logp, old_logp, advantages, clip_param):
     """Per-sample clipped surrogate (reference ppo.py:154-159), not reduced."""
     ratio = torch.exp(logp - old_logp)

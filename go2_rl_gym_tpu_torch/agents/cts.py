@@ -23,9 +23,10 @@ value back to the host: its metrics are tensors on the device.
 
 Under a data-parallel mesh (`attach_mesh`, distributed/mesh.py) the env
 split is that of the global env ids, the minibatches are those of one
-process over the global batch, and each rank computes its members' share of
-every loss (sums over the global counts); `update` then reads the members'
-counts back once.
+process over the global batch, gathered once per update, and each rank
+computes its static share of every loss (sums over the global counts;
+teacher and student shares of ceil(count / W) each, padded with weight 0),
+so `update` reads nothing back under a mesh either.
 """
 from __future__ import annotations
 
@@ -129,7 +130,7 @@ class CTS:
     def attach_mesh(self, mesh: mesh_lib.Mesh):
         """Train as rank `mesh.rank` of a data-parallel run over the
         `num_envs` envs: the rollout's student mask becomes this rank's
-        slice, and `update` takes this rank's members of the minibatches."""
+        slice, and `update` takes this rank's share of the minibatches."""
         if mesh.num_envs != self.num_envs:
             raise ValueError(f"the mesh covers {mesh.num_envs} envs, the "
                              f"algorithm {self.num_envs}")
@@ -233,24 +234,28 @@ class CTS:
                                       for envs in self._envs_t)
         return self._flat_idx[T]
 
-    def _load_balance(self, gate, count):
+    def _load_balance(self, gate, count, weight=None):
         """The MoE load-balance term of a minibatch of `count` samples of
-        which `gate` holds this rank's gate weights: mean((mean usage -
-        1/E)^2). It is nonlinear in the minibatch mean, so the usage sums
-        are all-reduced inside autograd before the square; every rank
-        computes the whole term and takes 1/world of it, so that the ranks'
-        shares, like their gradients, sum to one process's."""
-        usage = mesh_lib.all_reduce_autograd(self.mesh, gate.sum(dim=0))
+        which `gate` holds this rank's share's gate weights (padding
+        weighted 0 by `weight`): mean((mean usage - 1/E)^2). It is
+        nonlinear in the minibatch mean, so the usage sums are all-reduced
+        inside autograd before the square; every rank computes the whole
+        term and takes 1/world of it, so that the ranks' shares, like their
+        gradients, sum to one process's."""
+        usage = mesh_lib.all_reduce_autograd(
+            self.mesh, common.weighted_sum(gate, weight, dim=0))
         lb = torch.mean(torch.square(usage / count
                                      - 1.0 / self.model.expert_num))
         return lb / (self.mesh.world if self.mesh else 1)
 
-    def _ppo_loss(self, mb, tc, tmb, smb):
-        """Pass-1 loss on this rank's members of one minibatch of `tmb`
-        teacher and `smb` student samples: its `tc` teacher samples first,
-        then its students. Returns (loss, (value loss, surrogate, entropy,
-        actor load balance), mu, std), each this rank's share."""
+    def _ppo_loss(self, mb, tc, tmb, smb, weight=None):
+        """Pass-1 loss on this rank's share of one minibatch of `tmb`
+        teacher and `smb` student samples: its `tc` teacher rows first,
+        then its student rows, padding weighted 0 by `weight`. Returns
+        (loss, (value loss, surrogate, entropy, actor load balance), mu,
+        std), each this rank's share."""
         cfg, model = self.cfg, self.model
+        wsum = common.weighted_sum
         with torch.no_grad():
             lat_s, _ = model.s_latent(mb["history"][tc:])
         lat_t = model.t_latent(mb["critic_obs"][:tc])
@@ -259,34 +264,37 @@ class CTS:
         logp = common.gaussian_log_prob(mu, std, mb["actions"])
         lat_sg = latent.detach()
         values, ac_w = model.val(lat_sg, mb["critic_obs"], mb["obs"])
-        entropy = common.gaussian_entropy(std).sum() / (tmb + smb)
+        entropy = wsum(common.gaussian_entropy(std), weight) / (tmb + smb)
         surr = common.surrogate_loss(logp, mb["log_probs"], mb["advantages"],
                                      cfg.clip_param)
-        surr_loss = surr[:tc].sum() / tmb + surr[tc:].sum() / smb
-        vloss = common.clipped_value_loss(
+        w_t, w_s = (None, None) if weight is None else (weight[:tc],
+                                                        weight[tc:])
+        surr_loss = wsum(surr[:tc], w_t) / tmb + wsum(surr[tc:], w_s) / smb
+        vloss = wsum(common.clipped_value_loss(
             values, mb["values"], mb["returns"], cfg.clip_param,
-            cfg.use_clipped_value_loss).sum() / (tmb + smb)
+            cfg.use_clipped_value_loss), weight) / (tmb + smb)
         loss = surr_loss + cfg.value_loss_coef * vloss \
             - cfg.entropy_coef * entropy
         ac_lb = torch.zeros((), device=loss.device)
         if self.family in ACTOR_MOE:
-            ac_lb = self._load_balance(ac_w, tmb + smb)
+            ac_lb = self._load_balance(ac_w, tmb + smb, weight)
             loss = loss + cfg.load_balance_coef * ac_lb
         return loss, (vloss, surr_loss, entropy, ac_lb), mu, std
 
-    def _distill_loss(self, hist, priv, smb):
-        """Pass-2 loss on this rank's student samples of one minibatch of
-        `smb` student samples. Returns (loss, (latent loss, student load
-        balance)), each this rank's share."""
+    def _distill_loss(self, hist, priv, smb, weight=None):
+        """Pass-2 loss on this rank's share of the student samples of one
+        minibatch of `smb` student samples, padding weighted 0 by
+        `weight`. Returns (loss, (latent loss, student load balance)), each
+        this rank's share."""
         model = self.model
         s_lat, gate = model.s_latent(hist)
         with torch.no_grad():
             t_lat = model.t_latent(priv)
-        latent_loss = torch.sum(torch.square(t_lat - s_lat)) / (
-            smb * s_lat.shape[-1])
+        latent_loss = common.weighted_sum(
+            torch.square(t_lat - s_lat), weight) / (smb * s_lat.shape[-1])
         loss, lb = latent_loss, torch.zeros((), device=latent_loss.device)
         if self.family in STUDENT_MOE:
-            lb = self._load_balance(gate, smb)
+            lb = self._load_balance(gate, smb, weight)
             loss = loss + self.cfg.load_balance_coef * lb
         return loss, (latent_loss, lb)
 
@@ -300,8 +308,9 @@ class CTS:
         by `perms` = (teacher permutation, student permutation) of
         range(num_teacher * T) and range(num_student * T) if given, else by
         torch.randperm from `gen` (under a mesh, the same on every rank).
-        Returns the metrics as 0-d tensors (under a mesh, this rank's shares
-        of them, which sum over the ranks to the global values)."""
+        Nothing is read back and every shape is fixed, with or without a
+        mesh. Returns the metrics as 0-d tensors (under a mesh, this rank's
+        shares of them, which sum over the ranks to the global values)."""
         cfg = self.cfg
         T, N = batch.rewards.shape          # N: this rank's envs
         nmb = cfg.num_mini_batches
@@ -318,26 +327,28 @@ class CTS:
                      torch.randperm(len(s_pos), generator=gen, device=dev))
         t_perm, s_perm = (torch.as_tensor(p, device=dev).long() for p in perms)
         # one shuffle reused across epochs, teacher-first per minibatch; of
-        # each minibatch this rank takes the members of its envs
-        t_mb = t_pos[t_perm].reshape(nmb, tmb)
-        s_mb = s_pos[s_perm].reshape(nmb, smb)
-        (t_mem, t_cnt), (s_mem, s_cnt) = mesh_lib.local_members(
-            self.mesh, (t_mb, t_mb // T), (s_mb, s_mb // T))
-        idx = torch.cat([x for s in range(nmb)
-                         for x in (t_mem[s, :t_cnt[s]], s_mem[s, :s_cnt[s]])])
-        off = np.cumsum([0] + [t + c for t, c in zip(t_cnt, s_cnt)]).tolist()
-        # env-major position n*T + t (rollout_storage_cts.py:175-192) ->
-        # row t*N + n of this rank's (T, N) storage: no transposed copy
-        start = self.mesh.env_slice.start if self.mesh else 0
-        rows = (idx % T) * N + idx // T - start
-
-        def shuffle(x):
-            return x.reshape((T * N,) + x.shape[2:])[rows]
-
-        # the shuffled pools are gathered once, minibatches are slices
-        pools = {k: shuffle(getattr(batch, k)) for k in _MB_FIELDS}
-        pools["returns"] = shuffle(returns)
-        pools["advantages"] = shuffle(advantages)
+        # each minibatch this rank takes its static teacher and student
+        # shares (mesh_lib.share_index; the whole minibatch without a mesh)
+        t_cols, t_w = mesh_lib.share_index(self.mesh, tmb, dev)
+        s_cols, s_w = mesh_lib.share_index(self.mesh, smb, dev)
+        tc = len(t_cols)
+        idx = torch.cat([t_pos[t_perm].reshape(nmb, tmb)[:, t_cols],
+                         s_pos[s_perm].reshape(nmb, smb)[:, s_cols]], dim=1)
+        weight = None
+        if t_w is not None or s_w is not None:
+            weight = torch.cat([torch.ones_like(t_cols, dtype=torch.float32)
+                                if t_w is None else t_w,
+                                torch.ones_like(s_cols, dtype=torch.float32)
+                                if s_w is None else s_w])
+        # the samples a minibatch reads, of every rank, in one buffer (one
+        # all_gather under a mesh); env-major position n*T + t
+        # (rollout_storage_cts.py:175-192) -> its row: no transposed copy
+        fields = {k: getattr(batch, k) for k in _MB_FIELDS}
+        fields.update(returns=returns, advantages=advantages)
+        samples, layout = common.gather_fields(self.mesh, fields, 2)
+        rows = mesh_lib.sample_rows(idx // T, idx % T, T, N)
+        # the shuffled shares gathered once, minibatches are slices
+        pools = common.split_fields(samples[rows], layout)
         slots = [s for _ in range(cfg.num_learning_epochs) for s in range(nmb)]
         p1, p2 = self.param_groups()
         adaptive = cfg.schedule == "adaptive" and cfg.desired_kl is not None
@@ -345,11 +356,11 @@ class CTS:
         # ---------------- pass 1: PPO on optimizer 1 ----------------
         lr, opt1, stats1 = self.lr, self.opt1, []
         for slot in slots:
-            mb = {k: v[off[slot]:off[slot + 1]] for k, v in pools.items()}
-            loss, stats, mu, std = self._ppo_loss(mb, t_cnt[slot], tmb, smb)
+            mb = {k: v[slot] for k, v in pools.items()}
+            loss, stats, mu, std = self._ppo_loss(mb, tc, tmb, smb, weight)
             # this minibatch's KL sets the step's lr
-            kl_sum = (common.kl_divergence(mu.detach(), std.detach(),
-                                           mb["mu"], mb["sigma"]).sum()
+            kl_sum = (common.weighted_sum(common.kl_divergence(
+                mu.detach(), std.detach(), mb["mu"], mb["sigma"]), weight)
                       if adaptive else None)
             opt1, lr = common.minibatch_step(
                 self.mesh, loss, p1, opt1, lr, cfg.max_grad_norm, kl_sum,
@@ -358,11 +369,11 @@ class CTS:
 
         # ------- pass 2: distillation on optimizer 2 (updated teacher) -------
         opt2, stats2 = self.opt2, []
+        w_s = None if weight is None else weight[tc:]
         for slot in slots:
-            students = slice(off[slot] + t_cnt[slot], off[slot + 1])
-            loss, stats = self._distill_loss(pools["history"][students],
-                                             pools["critic_obs"][students],
-                                             smb)
+            loss, stats = self._distill_loss(pools["history"][slot, tc:],
+                                             pools["critic_obs"][slot, tc:],
+                                             smb, w_s)
             opt2, _ = common.minibatch_step(self.mesh, loss, p2, opt2,
                                             self.lr2, cfg.max_grad_norm)
             stats2.append(torch.stack(stats).detach())

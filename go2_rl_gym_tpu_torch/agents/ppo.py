@@ -6,14 +6,14 @@ agents/cts.py, the train state (the model's parameters, one Adam state and
 the learning rate as a 0-d fp32 tensor) lives in this object; the parameters
 are the model's, updated in place, and without a mesh `update` reads
 nothing back to the host. Under a data-parallel mesh (`attach_mesh`) the
-minibatches are those of one process over the global batch, as in
-agents/cts.py.
+minibatches are those of one process over the global batch, gathered once
+per update, of which each rank takes a static share padded with weight 0,
+as in agents/cts.py; nothing is read back there either.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from go2_rl_gym_tpu_torch.agents import common
@@ -41,19 +41,22 @@ MB_FIELDS = ("obs", "critic_obs", "actions", "values", "log_probs", "mu",
              "sigma")
 
 
-def ppo_loss(cfg: AlgorithmCfg, mu, std, values, mb, count):
+def ppo_loss(cfg: AlgorithmCfg, mu, std, values, mb, count, weight=None):
     """The clipped PPO loss of one minibatch of `count` samples (JAX
     ppo.py:114-126), of which `mb` (MB_FIELDS, returns and advantages)
-    holds this rank's: each term is their sum over `count`. Returns (loss,
-    (value loss, surrogate, mean entropy))."""
+    holds this rank's share, its padding weighted 0 by `weight`: each term
+    is their weighted sum over `count`. Returns (loss, (value loss,
+    surrogate, mean entropy))."""
+    wsum = common.weighted_sum
     logp = common.gaussian_log_prob(mu, std, mb["actions"])
-    entropy = common.gaussian_entropy(std).sum() / count
-    surr = common.surrogate_loss(logp, mb["log_probs"], mb["advantages"],
-                                 cfg.clip_param).sum() / count
-    vloss = common.clipped_value_loss(values, mb["values"], mb["returns"],
-                                      cfg.clip_param,
-                                      cfg.use_clipped_value_loss
-                                      ).sum() / count
+    entropy = wsum(common.gaussian_entropy(std), weight) / count
+    surr = wsum(common.surrogate_loss(logp, mb["log_probs"],
+                                      mb["advantages"], cfg.clip_param),
+                weight) / count
+    vloss = wsum(common.clipped_value_loss(values, mb["values"],
+                                           mb["returns"], cfg.clip_param,
+                                           cfg.use_clipped_value_loss),
+                 weight) / count
     loss = surr + cfg.value_loss_coef * vloss - cfg.entropy_coef * entropy
     return loss, (vloss, surr, entropy)
 
@@ -73,7 +76,7 @@ class PPO:
 
     def attach_mesh(self, mesh: mesh_lib.Mesh):
         """Train as rank `mesh.rank` of a data-parallel run: `update` takes
-        this rank's members of the minibatches of the global batch."""
+        this rank's share of the minibatches of the global batch."""
         self.mesh = mesh
 
     def make_model(self, num_obs, num_critic_obs, num_actions,
@@ -145,14 +148,6 @@ class PPO:
     def _n_global(self, n):
         return self.mesh.num_envs if self.mesh else n
 
-    def _members(self, units, envs):
-        """This rank's members of the minibatches (rows of `units`, whose
-        global envs are `envs`), concatenated slot by slot, and the slots'
-        offsets into them (mesh.local_members)."""
-        [(members, counts)] = mesh_lib.local_members(self.mesh, (units, envs))
-        rows = torch.cat([members[s, :c] for s, c in enumerate(counts)])
-        return rows, np.cumsum([0] + counts).tolist()
-
     def update(self, batch: Transition, returns, advantages,
                gen: Optional[torch.Generator] = None, perms=None):
         """`num_learning_epochs` x `num_mini_batches` clipped-PPO steps
@@ -169,22 +164,19 @@ class PPO:
         mb_size = total // nmb
         perm = self._perm(total, nmb * mb_size, gen, perms).reshape(
             nmb, mb_size)
-        units, off = self._members(perm, perm % n_all)
-        start = self.mesh.env_slice.start if self.mesh else 0
-        rows = units // n_all * N + units % n_all - start
-
-        def shuffle(x):
-            return x.reshape((T * N,) + x.shape[2:])[rows]
-
-        pools = {k: shuffle(getattr(batch, k)) for k in MB_FIELDS}
-        pools["returns"] = shuffle(returns)
-        pools["advantages"] = shuffle(advantages)
+        cols, weight = mesh_lib.share_index(self.mesh, mb_size, self.device)
+        units = perm[:, cols]               # global t*n_all + n
+        fields = {k: getattr(batch, k) for k in MB_FIELDS}
+        fields.update(returns=returns, advantages=advantages)
+        samples, layout = common.gather_fields(self.mesh, fields, 2)
+        rows = mesh_lib.sample_rows(units % n_all, units // n_all, T, N)
+        pools = common.split_fields(samples[rows], layout)
 
         def forward(slot):
-            mb = {k: v[off[slot]:off[slot + 1]] for k, v in pools.items()}
+            mb = {k: v[slot] for k, v in pools.items()}
             mu, std = self.model.actor_dist(mb["obs"])
             return mb, mu, std, self.model.value(mb["critic_obs"])
-        return self._epochs(nmb, mb_size, forward)
+        return self._epochs(nmb, mb_size, forward, weight)
 
     def _perm(self, n, keep, gen, perms):
         """The update's one shuffle: `perms` if given, else a permutation of
@@ -196,14 +188,14 @@ class PPO:
             perms = torch.randperm(n, generator=gen, device=self.device)
         return torch.as_tensor(perms, device=self.device).long()[:keep]
 
-    def _epochs(self, nmb, count, forward):
+    def _epochs(self, nmb, count, forward, weight=None):
         """The minibatch loop: epochs x the `nmb` minibatches of `count`
         samples each, each one clipped-PPO Adam step on all parameters.
         `forward(slot)` gives (mb, mu, std, values): minibatch `slot`'s
-        samples of this rank (a dict of MB_FIELDS, returns and advantages)
-        and the model's outputs on them. The adaptive-KL LR is set from each
-        minibatch's KL before its step. Returns the means of the losses and
-        the final LR."""
+        share of this rank (a dict of MB_FIELDS, returns and advantages)
+        and the model's outputs on them; `weight` zeroes the share's
+        padding. The adaptive-KL LR is set from each minibatch's KL before
+        its step. Returns the means of the losses and the final LR."""
         cfg = self.cfg
         params = list(self.model.parameters())
         adaptive = cfg.schedule == "adaptive" and cfg.desired_kl is not None
@@ -211,11 +203,11 @@ class PPO:
         for _ in range(cfg.num_learning_epochs):
             for slot in range(nmb):
                 mb, mu, std, values = forward(slot)
-                loss, st = ppo_loss(cfg, mu, std, values, mb, count)
+                loss, st = ppo_loss(cfg, mu, std, values, mb, count, weight)
                 # the KL over all samples of the minibatch
-                kl_sum = (common.kl_divergence(mu.detach(), std.detach(),
-                                               mb["mu"], mb["sigma"]).sum()
-                          if adaptive else None)
+                kl_sum = (common.weighted_sum(common.kl_divergence(
+                    mu.detach(), std.detach(), mb["mu"], mb["sigma"]),
+                    weight) if adaptive else None)
                 opt, lr = common.minibatch_step(
                     self.mesh, loss, params, opt, lr, cfg.max_grad_norm,
                     kl_sum, count, cfg.desired_kl)

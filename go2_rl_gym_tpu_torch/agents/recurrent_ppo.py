@@ -12,8 +12,9 @@ hidden-state plumbing), as the JAX package designs it:
 * The memory is carried in the runner's RunnerState; the runner snapshots
   the rollout-start memory once per iteration for the replay.
 * Minibatches are env slices (sequences stay whole), shuffled once per
-  update; under a data-parallel mesh each rank replays its members of each
-  global slice from its own rollout-start memory.
+  update; under a data-parallel mesh the envs' windows and rollout-start
+  memories are gathered once per update, and each rank replays a static
+  share of the envs of each global slice (padded with weight 0).
 
 The train state lives in this object, as in agents/ppo.py.
 """
@@ -27,6 +28,7 @@ from go2_rl_gym_tpu_torch.agents import common
 from go2_rl_gym_tpu_torch.agents.ppo import MB_FIELDS, PPO, Transition
 from go2_rl_gym_tpu_torch.agents.recurrent import (ActorCriticRecurrent,
                                                    LSTMState)
+from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.env.config import AlgorithmCfg, PolicyCfg
 
 
@@ -122,20 +124,25 @@ class RecurrentPPO(PPO):
         mb_envs = n_all // nmb
         perm = self._perm(n_all, nmb * mb_envs, gen, perms).reshape(
             nmb, mb_envs)
-        envs, off = self._members(perm, perm)
-        envs = envs - (self.mesh.env_slice.start if self.mesh else 0)
-
-        pools = {k: getattr(batch, k)[:, envs]
-                 for k in MB_FIELDS + ("dones",)}
-        pools["returns"] = returns[:, envs]
-        pools["advantages"] = advantages[:, envs]
-        # the rollout-start memory of the members' envs
-        mem = Memory(*[LSTMState(*[x[envs] for x in s]) for s in mem0])
+        cols, weight = mesh_lib.share_index(self.mesh, mb_envs, self.device)
+        envs = perm[:, cols]                # (nmb, share) global env ids
+        fields = {k: getattr(batch, k) for k in MB_FIELDS + ("dones",)}
+        fields.update(returns=returns, advantages=advantages)
+        samples, layout = common.gather_fields(self.mesh, fields, 2)
+        t = torch.arange(T, device=self.device)[:, None, None]
+        pools = common.split_fields(
+            samples[mesh_lib.sample_rows(envs, t, T, N)], layout)
+        # the rollout-start memory of the share's envs, gathered in global
+        # env order (a one-step sample per env)
+        mem_all = mesh_lib.gather_samples(
+            self.mesh, torch.cat([x for s in mem0 for x in s], dim=1))
+        mem = mem_all[envs].chunk(4, dim=-1)     # a.h, a.c, c.h, c.c
 
         def forward(slot):
-            sl = slice(off[slot], off[slot + 1])
-            mb = {k: v[:, sl] for k, v in pools.items()}
-            mem_mb = Memory(*[LSTMState(*[x[sl] for x in s]) for s in mem])
+            mb = {k: v[:, slot] for k, v in pools.items()}
+            mem_mb = Memory(LSTMState(mem[0][slot], mem[1][slot]),
+                            LSTMState(mem[2][slot], mem[3][slot]))
             return (mb, *self._replay(mb["obs"], mb["critic_obs"],
                                       mb["dones"], mem_mb))
-        return self._epochs(nmb, T * mb_envs, forward)
+        return self._epochs(nmb, T * mb_envs, forward,
+                            None if weight is None else weight[None])

@@ -30,17 +30,45 @@ torch.distributed.run's environment. JOB.pt (torch.save) holds {"jobs":
   with "profile" one more iteration runs with torch.profiler on from the
   rollout's end (GAE, update, metrics: every collective of it).
 * "dryrun": the graft dry run (graft_entry.dryrun_multichip): the runner
-  of the job's config, `init_runner_state(0)` and one `train_step`; the
-  result holds the metrics, the patch kernel's launches in the step and
-  whether every metric is finite.
+  of the job's config, `init_runner_state(0)` and the compiled step
+  (`mesh.make_sharded_train_step`) called twice: one iteration (on the card
+  under NCCL the eager warm-up, then the capture) and one more (a replay);
+  the result holds the first call's metrics, the patch kernel's launches,
+  whether the step was a graph, and whether every metric is finite.
+* "graph": the compiled step against eager `train_step`s from one state
+  (the registry's task at `num_envs` global envs, from random episode
+  lengths, seeded by the task's seed), with deterministic algorithms on:
+  `iterations` K eager iterations, then K of the compiled step (under
+  NCCL on a card the warm-up, the capture and K - 1 replays; else K eager
+  calls of the in-place step). The result holds both ends (parameters,
+  Adam states, learning rates, the RunnerState with its generators, the
+  stacked metrics; `end_state`), the mode, the captures, the patch launches of
+  warm-up, capture and replays, capture s and pool bytes; with "timed" n,
+  n eager (deterministic algorithms off) / compiled (as captured, with
+  them on) pairs alternating (host ms ending in a synchronize, the device
+  ms of each compiled call by CUDA events), the update's
+  gathers (shapes, bytes, device ms of one by CUDA events) and the NCCL
+  and memcpy rows of one profiled compiled call; with "learn" n, `learn`
+  of n iterations on the same runner (saving under "log_root" if given)
+  and rank 0's logged metrics; "seconds" times each part. With "no_mesh"
+  the rank runs all of it on one process's runner of the `num_envs` envs
+  (no collectives).
+* "learn": `learn` of `iterations` iterations from a global state and
+  train state (as "step"), the act noise of each iteration injected; the
+  result holds rank 0's logged metrics, the final parameters and the
+  train mode.
+* "host_reads": two `train_step`s of the task, the second under the
+  capture-safety sentinel (`utils.graphs.HostReads`); the result holds
+  what it recorded.
 
 A job's config is the task's with `num_envs` global envs, `steps` per
 iteration, `terrain` "parity" (card_check.parity_cfg's 3 x 9 sub-terrains),
 "dryrun" (2 x 9 sub-terrains, a 2 m border: __graft_entry__.py:50-53),
-"plane" or "flagship", and `randomness` False for DR, pushes, the action
+"plane" or "flagship", `randomness` False for DR, pushes, the action
 delay and observation noise off, `curriculum` True for the command
-curriculum on. The tests (tests/test_torch_distributed.py) and chip_smoke.py
-spawn this module.
+curriculum on, and `mini_batches` the update's minibatch count. The tests
+(tests/test_torch_distributed.py, tests/test_torch_mesh_graph.py) and
+chip_smoke.py spawn this module.
 """
 from __future__ import annotations
 
@@ -55,7 +83,7 @@ from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.ops import terrain_patches
 from go2_rl_gym_tpu_torch.tools import card_check
 from go2_rl_gym_tpu_torch.train.runner import _pack, _unpack
-from go2_rl_gym_tpu_torch.utils import registry
+from go2_rl_gym_tpu_torch.utils import graphs, registry
 
 
 def job_cfgs(job):
@@ -81,6 +109,8 @@ def job_cfgs(job):
         env_cfg.noise.add_noise = False
     if job.get("curriculum"):
         env_cfg.commands.curriculum = True
+    if job.get("mini_batches"):
+        tc.algorithm.num_mini_batches = job["mini_batches"]
     return env_cfg, tc
 
 
@@ -90,7 +120,8 @@ def build(job, device, mesh=None):
     env = registry.make_env(job["task"], env_cfg,
                             num_steps_per_env=tc.runner.num_steps_per_env,
                             device=device, mesh=mesh)
-    return registry.make_runner(job["task"], env, tc, device=device)
+    return registry.make_runner(job["task"], env, tc, device=device,
+                                log_root=job.get("log_root"))
 
 
 def flat(tree, prefix=""):
@@ -261,18 +292,278 @@ def run_train(job, device, mesh=None):
             "obs_finite": bool(torch.isfinite(rs.obs).all())}
 
 
+def _reset_launches():
+    for k in terrain_patches.LAUNCHES:
+        terrain_patches.LAUNCHES[k] = 0
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _metrics(runner, vec):
+    """A compiled step's (T,) metric vector as a dict of CPU tensors."""
+    offs = [0]
+    for n in runner.metric_sizes:
+        offs.append(offs[-1] + n)
+    vec = vec.detach().cpu()
+    return {k: vec[offs[i]] if runner.metric_sizes[i] == 1
+            else vec[offs[i]:offs[i + 1]].clone()
+            for i, k in enumerate(runner.metric_keys)}
+
+
 def run_dryrun(job, device, mesh=None):
     runner = build(job, device, mesh)
     rs = runner.init_runner_state(0)
-    for k in terrain_patches.LAUNCHES:
-        terrain_patches.LAUNCHES[k] = 0
-    rs, m = runner.train_step(rs)
-    if runner.device.type == "cuda":
-        torch.cuda.synchronize(runner.device)
-    metrics = {k: v.detach().cpu() for k, v in m.items()}
+    _reset_launches()
+    step = mesh_lib.make_sharded_train_step(runner, mesh, rs)
+    first = step().clone()
+    again = step().clone()
+    _sync(runner.device)
+    metrics = _metrics(runner, first)
     return {"metrics": metrics, "launches": dict(terrain_patches.LAUNCHES),
+            "graphed": isinstance(step, graphs.StepGraph),
+            "mode": runner.train_mode(),
             "finite": all(bool(torch.isfinite(v).all())
-                          for v in metrics.values())}
+                          for v in metrics.values())
+            and bool(torch.isfinite(again).all())}
+
+
+# the algorithms' train state besides the parameters: PPO's or CTS's
+TRAIN_STATE = ("opt", "opt1", "opt2", "lr", "lr2")
+
+
+def end_state(runner, rs, rows):
+    """A run's end on the CPU by category: "params", "adam" (moments and
+    counts), "lr", "runner_state" (the RunnerState's tensors),
+    "generators" (their states) and "metrics" (the stacked (K, T) metric
+    vectors)."""
+    alg = runner.alg
+    out = {"params": _params(runner), "adam": {}, "lr": {},
+           "runner_state": {}, "generators": {}}
+    for n in (n for n in TRAIN_STATE if hasattr(alg, n)):
+        for path, x in graphs.leaves(getattr(alg, n)):
+            key = ".".join(map(str, (n,) + path))
+            out["lr" if n.startswith("lr") else "adam"][key] = x.cpu().clone()
+    for path, x in graphs.leaves(rs):
+        key = ".".join(map(str, path))
+        if isinstance(x, torch.Generator):
+            out["generators"][key] = x.get_state()
+        else:
+            out["runner_state"][key] = x.cpu().clone()
+    out["metrics"] = {"stacked": torch.stack(rows).cpu()}
+    return out
+
+
+def run_graph(job, device, mesh=None):
+    if job.get("no_mesh"):
+        mesh = None
+    runner = build(job, device, mesh)
+    alg, k = runner.alg, job.get("iterations", 3)
+    rs0 = graphs.copy_tree(runner.init_runner_state(
+        job.get("seed", runner.cfg.seed), init_at_random_ep_len=True))
+    params0 = {n: p.detach().clone() for n, p in alg.model.named_parameters()}
+    owned0 = {n: graphs.copy_tree(getattr(alg, n)) for n in TRAIN_STATE
+              if hasattr(alg, n)}
+
+    def restore():
+        with torch.no_grad():
+            for n, p in alg.model.named_parameters():
+                p.copy_(params0[n])
+        for n, v in owned0.items():
+            graphs.assign(getattr(alg, n), v)
+        return graphs.copy_tree(rs0)
+
+    def flat_metrics(m):
+        return graphs.flat_metrics(graphs.metric_layout(m)[0])(m)
+
+    clock = [time.perf_counter()]
+
+    def lap():
+        clock.append(time.perf_counter())
+        return clock[-1] - clock[-2]
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        rs, rows = restore(), []
+        for _ in range(k):
+            rs, m = runner.train_step(rs)
+            rows.append(flat_metrics(m))
+        _sync(runner.device)
+        eager = end_state(runner, rs, rows)
+        seconds = {"eager": lap()}
+
+        step = mesh_lib.make_sharded_train_step(runner, mesh,
+                                                restore())
+        graphed = isinstance(step, graphs.StepGraph)
+        _reset_launches()
+        if graphed:
+            rows = [step._warm_up().clone()]
+            warm = terrain_patches.LAUNCHES["extract_patches"]
+            _reset_launches()
+            step._capture()
+            captured = terrain_patches.LAUNCHES["extract_patches"]
+        else:
+            rows, warm, captured = [], 0, 0
+        _reset_launches()
+        while len(rows) < k:
+            rows.append(step().clone())
+        _sync(runner.device)
+        replayed = terrain_patches.LAUNCHES["extract_patches"]
+        compiled = end_state(runner, step.state, rows)
+        seconds["compiled"] = lap()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = {"mode": runner.train_mode(), "graphed": graphed,
+           "eager": eager, "compiled": compiled,
+           "launches": {"warm_up": warm, "capture": captured,
+                        "replays": replayed},
+           "captures": getattr(step, "captures", 0),
+           "capture_s": getattr(step, "capture_s", float("nan")),
+           "pool_bytes": getattr(step, "pool_bytes", 0),
+           "local_envs": runner.env.num_envs,
+           "steps": runner.num_steps}
+    if job.get("timed"):
+        out.update(_time_compiled(runner, step, job["timed"], mesh))
+        seconds["timed"] = lap()
+    if job.get("learn"):
+        out["learn"] = _learn(runner, step.state, job["learn"])
+        seconds["learn"] = lap()
+    out["seconds"] = seconds
+    return out
+
+
+def _time_compiled(runner, step, pairs, mesh):
+    """Eager train_steps (deterministic algorithms off) and calls of the
+    compiled step (its graph captured with them on) alternating on the
+    runner, the update's gathers timed alone, and one compiled call under
+    torch.profiler."""
+    from go2_rl_gym_tpu_torch.tools.profile_rollout import _device_us, _kernels
+    dev = runner.device
+    cuda = dev.type == "cuda"
+    rs = graphs.copy_tree(step.state)
+    times = {"eager_ms": [], "compiled_ms": [], "compiled_device_ms": []}
+    for _ in range(pairs):
+        _sync(dev)
+        t = time.perf_counter()
+        rs, _ = runner.train_step(rs)
+        _sync(dev)
+        times["eager_ms"].append((time.perf_counter() - t) * 1e3)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        if cuda:
+            start.record()
+        step()
+        if cuda:
+            end.record()
+        _sync(dev)
+        times["compiled_ms"].append((time.perf_counter() - t) * 1e3)
+        if cuda:
+            times["compiled_device_ms"].append(start.elapsed_time(end))
+
+    # the update's gathers: their shapes in one eager iteration, then each
+    # timed alone on a buffer of that shape
+    shapes, gather = [], mesh_lib.gather_samples
+
+    def spy(mesh_, x):
+        shapes.append(tuple(x.shape))
+        return gather(mesh_, x)
+    mesh_lib.gather_samples = spy
+    try:
+        runner.train_step(rs)
+    finally:
+        mesh_lib.gather_samples = gather
+    gathers = []
+    for shape in shapes:
+        x = torch.zeros(shape, device=dev)
+        y = gather(mesh, x)
+        ms = float("nan")
+        if cuda:
+            _sync(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                gather(mesh, x)
+            end.record()
+            _sync(dev)
+            ms = start.elapsed_time(end) / 5
+        gathers.append({"shape": list(shape),
+                        "bytes": y.numel() * y.element_size(),
+                        "device_ms": ms})
+        del x, y
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    _sync(dev)
+    with torch.profiler.profile(activities=acts) as prof:
+        step()
+        _sync(dev)
+    kernels = _kernels(prof)
+    rows = [[e.key, e.count, _device_us(e) / 1e3] for e in kernels
+            if "nccl" in e.key.lower() or "memcpy" in e.key.lower()]
+    return {"times": times, "gathers": gathers, "profiled": {
+        "launches": sum(e.count for e in kernels),
+        "device_ms": sum(_device_us(e) for e in kernels) / 1e3,
+        "nccl_or_memcpy": rows}}
+
+
+class _Scalars:
+    """A metrics sink for `learn` that keeps what it logs: tag -> {step:
+    value}."""
+
+    def __init__(self):
+        self.logged = {}
+
+    def add_scalar(self, tag, value, step):
+        self.logged.setdefault(tag, {})[int(step)] = float(value)
+
+    def flush(self):
+        pass
+
+
+def _learn(runner, rs, iterations):
+    """`learn` with rank 0's logged scalars kept (`_Scalars`); returns them
+    without the per-chunk timings (Perf/*), {} on the other ranks."""
+    if runner.is_main:
+        runner.writer = _Scalars()
+    runner.learn(rs, iterations)
+    if not runner.is_main:
+        return {}
+    return {k: v for k, v in runner.writer.logged.items()
+            if not k.startswith("Perf/")}
+
+
+def run_learn(job, device, mesh=None):
+    runner = build(job, device, mesh)
+    template = runner.init_runner_state(0)
+    runner.alg.load_train_state_dict(job["train_state"])
+    rs = _global_to_rank(template, job["state"], device, mesh)
+    noise = iter(job["noise"])
+    train_step = runner.train_step
+
+    def injected(r, **kwargs):
+        n = next(noise).to(device)
+        if mesh is not None:
+            n = n[:, mesh.env_slice]
+        return train_step(r, noise=n, **kwargs)
+    runner.train_step = injected
+    return {"logged": _learn(runner, rs, job["iterations"]),
+            "params": _params(runner), "mode": runner.train_mode()}
+
+
+def run_host_reads(job, device, mesh=None):
+    runner = build(job, device, mesh)
+    rs = runner.init_runner_state(0, init_at_random_ep_len=True)
+    rs, _ = runner.train_step(rs)           # the first fills lazy caches
+    mode = graphs.HostReads()
+    with mode:
+        runner.train_step(rs)
+    return {"hits": mode.hits}
 
 
 def _profile_iteration(runner, rs, sync):
@@ -313,7 +604,8 @@ def _profile_iteration(runner, rs, sync):
 
 
 JOBS = {"step": run_step, "curriculum": run_curriculum,
-        "resume": run_resume, "train": run_train, "dryrun": run_dryrun}
+        "resume": run_resume, "train": run_train, "dryrun": run_dryrun,
+        "graph": run_graph, "learn": run_learn, "host_reads": run_host_reads}
 
 
 def get_args(argv=None):

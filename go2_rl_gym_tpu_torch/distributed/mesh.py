@@ -13,15 +13,30 @@ N. What was one program over N envs makes its collectives explicit:
 * GAE normalises the advantages by the global mean and population std
   (agents/common.py);
 * the update draws its permutations from a generator seeded alike on every
-  rank, and each rank takes the members of each global minibatch that fall
-  in its slice (`local_members`); the losses divide by the global counts,
-  and the gradients are sum-all-reduced before the clip, so that clip and
-  Adam run identically and the parameters stay equal on every rank without
-  a broadcast; the MoE load-balance terms, nonlinear in a minibatch mean,
-  all-reduce their usage sums inside autograd (agents/{cts,ppo,
-  recurrent_ppo}.py);
+  rank; once per update every rank all_gathers the samples the update
+  reads into one buffer of the global batch (`gather_samples`), and takes
+  a static share of each global minibatch: members [r*c, (r+1)*c), c =
+  ceil(m / W), the rows past m padding with clamped indices and loss
+  weight 0 (`share`, `share_index`). The losses divide by the global
+  counts, and the gradients are sum-all-reduced before the clip, so that
+  the W shares add up to the one-process minibatch loss, clip and Adam
+  run identically and the parameters stay equal on every rank without a
+  broadcast; the MoE load-balance terms, nonlinear in a minibatch mean,
+  all-reduce their weighted usage sums inside autograd (agents/{cts,ppo,
+  recurrent_ppo}.py). At W = 1 the share is the whole minibatch in its
+  order. Every shape is fixed and nothing is read back, so the iteration
+  is captured as one CUDA graph per rank under NCCL
+  (`make_sharded_train_step`);
 * the runner all-reduces an iteration's metrics once, and gathers the env
   state in global env order for its checkpoints (train/runner.py).
+
+Designs not taken for the shares: every rank computing the whole minibatch
+with the other ranks' rows weighted 0 costs W times the update's compute;
+a permutation stratified by rank (each minibatch drawn from every rank's
+envs alike) changes which samples meet in a minibatch, which is not the
+JAX package's semantics. The gather costs 4 * F bytes per sample of the
+global batch (F = 573 floats for go2_moe_cts: ~225 MB at 4096 envs x 24
+steps) on every rank.
 
 torch cannot reproduce threefry, so the statement is: W ranks compute what
 one process computes on the same N envs, given the same act noise and
@@ -37,8 +52,9 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -138,8 +154,23 @@ def make_mesh(num_envs: int, device) -> Mesh:
                 device=torch.device(device), num_envs=num_envs)
 
 
+def make_sharded_train_step(runner, mesh: Mesh, rs):
+    """The runner's compiled train step over `mesh` (the twin of
+    mesh.py:90-94, `jax.jit(train_step, in_shardings=...)`): the in-place
+    step on `rs`, this rank's shard, captured as one CUDA graph under NCCL
+    on a card (`OnPolicyRunner.compiled_step`, `train_mode`). `mesh` None
+    is a runner without one."""
+    if runner.mesh is not mesh:
+        raise ValueError("the runner is not attached to this mesh")
+    return runner.compiled_step(rs)
+
+
 def shutdown():
+    """Destroy the process group, after freeing every CUDA graph that is no
+    longer referenced: on 4 H100s, ranks whose graph of NCCL collectives
+    outlived the communicator finished their work and never exited."""
     if dist.is_initialized():
+        gc.collect()
         dist.destroy_process_group()
 
 
@@ -220,30 +251,69 @@ def all_gather(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# minibatch membership
+# minibatch shares
 # ---------------------------------------------------------------------------
 
 
-def local_members(mesh: Optional[Mesh], *pools):
-    """This rank's members of the global minibatches of each pool.
+class Share(NamedTuple):
+    """A rank's share of a global minibatch of `m` members: the members
+    [start, start + size), of which the first `valid` exist; the rest is
+    padding."""
+    start: int
+    size: int
+    valid: int
 
-    A pool is (units, envs): `units` (nmb, m) holds the global sample ids of
-    each minibatch (one row each), `envs` (nmb, m) the global env of each.
-    Returns, per pool, (members, counts): each row with this rank's ids
-    first, in their order, and the number of them per row as a host list.
-    One device-to-host copy serves every pool; without a mesh every member
-    is local and nothing is copied."""
+
+def share(m: int, world: int, rank: int) -> Share:
+    """Rank `rank`'s static share of a minibatch of `m` members: c =
+    ceil(m / world) members from r * c on, the same size on every rank, so
+    that the W shares cover the minibatch once, in order, and only the last
+    ranks' shares hold padding."""
+    size = -(-m // world)
+    start = rank * size
+    return Share(start, size, max(0, min(size, m - start)))
+
+
+def share_index(mesh: Optional[Mesh], m: int, device):
+    """This rank's share of a minibatch of `m` members on `device`:
+    (positions (size,) int64 in the minibatch, padding clamped to m - 1;
+    weights (size,) fp32, 1 for a member and 0 for padding, or None where
+    the share has no padding). Without a mesh: every member, no weights."""
+    sh = share(m, mesh.world if mesh else 1, mesh.rank if mesh else 0)
+    cols = torch.arange(sh.start, sh.start + sh.size, device=device)
+    cols = torch.clamp(cols, max=m - 1)
+    if sh.valid == sh.size:
+        return cols, None
+    weight = (torch.arange(sh.size, device=device) < sh.valid).to(
+        torch.float32)
+    return cols, weight
+
+
+def _gather_single(out, x):
+    # torch >= 2.13 names the single-buffer all_gather all_gather_single
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, x)
+
+
+def gather_samples(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """Every rank's (T, n, F) samples as one (W * T * n, F) tensor, rank
+    after rank, each rank's block t-major (`sample_rows` addresses it); one
+    all_gather into a single buffer. Without a mesh, `x` as (T * n, F)."""
+    flat = x.reshape(-1, x.shape[-1]).contiguous()
     if mesh is None:
-        return [(units, [units.shape[1]] * units.shape[0])
-                for units, _ in pools]
-    lo, hi = mesh.env_slice.start, mesh.env_slice.stop
-    mine = [(envs >= lo) & (envs < hi) for _, envs in pools]
-    counts = torch.stack([m.sum(dim=1) for m in mine]).tolist()
-    out = []
-    for (units, _), m, c in zip(pools, mine, counts):
-        order = torch.argsort((~m).to(torch.int8), dim=1, stable=True)
-        out.append((torch.gather(units, 1, order), c))
+        return flat
+    out = torch.empty((mesh.world * flat.shape[0], flat.shape[1]),
+                      dtype=flat.dtype, device=flat.device)
+    _gather_single(out, flat)
     return out
+
+
+def sample_rows(env, t, steps: int, n_local: int):
+    """The row of `gather_samples`' result that holds step `t` of global env
+    `env` (tensors, broadcast), when each rank holds `n_local` envs for
+    `steps` steps: the rank's block, then t-major within it."""
+    return (env // n_local * steps + t) * n_local + env % n_local
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ multi-rank dry run of the train step (twin of __graft_entry__.py).
 * `dryrun_multichip(n, device)` runs the full go2_moe_cts train step
   (rollout + PPO + distillation) on tiny rough-terrain shapes over n ranks,
   each one a process of distributed/check.py: gloo on the CPU, NCCL on
-  cards (rank r on card r). It prints `dryrun_multichip(n) OK —
+  cards (rank r on card r). Each rank runs the compiled step
+  (`mesh.make_sharded_train_step`, the twin of __graft_entry__.py:60-62):
+  on cards one CUDA graph per rank. It prints `dryrun_multichip(n) OK —
   value_loss=...` and returns every rank's result.
 """
 from __future__ import annotations
@@ -61,8 +63,11 @@ def dryrun_multichip(n_devices: int, device="cuda", timeout_s: float = 600.0):
     """The full go2_moe_cts train step over `n_devices` ranks on tiny
     shapes: a 2 x 9 rough terrain with a 2 m border, 4 steps per env,
     max(8n, 16) envs, domain randomization and the curriculum on
-    (__graft_entry__.py:31-67). Returns the ranks' results (metrics, patch
-    launches, the rank's output); raises if a rank fails, times out or reports a non-finite
+    (__graft_entry__.py:31-67), through the compiled step: its first call
+    (on cards the eager warm-up and the capture) gives the metrics, and a
+    second call (a replay) must be finite too. Returns the ranks' results
+    (metrics, patch launches, whether the step was a graph, the rank's
+    output); raises if a rank fails, times out or reports a non-finite
     metric."""
     from go2_rl_gym_tpu_torch.device import resolve_device
     dev = resolve_device(device)

@@ -5,8 +5,10 @@ of legged_gym/utils/helpers.py:128-157. Builds the task's env and runner on
 `--device` (the card by default), starts every env at a random episode
 length, optionally resumes the latest (or a named) checkpoint of the
 experiment, and runs `learn` (on the card: one CUDA graph of the train
-iteration, replayed in chunks; `--debug_nans` runs it eagerly and raises at
-the first non-finite value). Every registered task trains (PPO `go2`,
+iteration, replayed in chunks, one graph per rank under torch.distributed.run
+with NCCL; `learn` prints which as `learn: graph (...)` or `learn: eager
+(...)`; `--debug_nans` runs it eagerly and raises at the first non-finite
+value). Every registered task trains (PPO `go2`,
 recurrent PPO `go2_lstm`, the six CTS tasks, the three ablation variants;
 `utils.registry.task_names()`). With `--eval_interval N`, rank 0 exports
 the policy every N iterations and scores it in MuJoCo in the background

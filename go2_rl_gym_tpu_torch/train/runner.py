@@ -33,6 +33,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from go2_rl_gym_tpu_torch.agents import common
@@ -421,29 +422,35 @@ class OnPolicyRunner:
     # ------------------------------------------------------------------
 
     def train_mode(self):
-        """How `learn` runs the train step: ("graph", why) on the card
-        without a mesh, where one CUDA graph of the iteration is captured
-        and replayed (utils/graphs.py); else ("eager", why): on the CPU,
-        under a mesh (a rank's minibatch membership has data-dependent
-        sizes, read back once per update), or with `debug_nans`."""
+        """How `learn` runs the train step: ("graph", why) on the card,
+        where one CUDA graph of the iteration is captured and replayed
+        (utils/graphs.py), under a mesh too when its process group is NCCL
+        (one graph per rank, its collectives captured); else ("eager",
+        why): under a gloo mesh (gloo's collectives run on the host and
+        cannot be captured), on the CPU, or with `debug_nans`."""
         if self.debug_nans:
             return "eager", ("debug_nans: anomaly detection, checked per "
                              "iteration")
-        if self.mesh is not None:
-            return "eager", (f"a mesh of {self.mesh.world} ranks: minibatch "
-                             f"membership is read back per update")
+        if self.mesh is not None and dist.get_backend() != "nccl":
+            return "eager", f"{dist.get_backend()} cannot be captured"
         if self.device.type != "cuda":
             return "eager", f"on {self.device}"
+        if self.mesh is not None:
+            return "graph", (f"one CUDA graph per iteration on "
+                             f"{self.device}, rank {self.mesh.rank} of "
+                             f"{self.mesh.world} over NCCL")
         return "graph", f"one CUDA graph per iteration on {self.device}"
 
     def compiled_step(self, rs: RunnerState):
         """The in-place train step on `rs`'s values: a callable that runs
         one iteration on fixed storage (its `step.state` holds the
         RunnerState) and returns the iteration's metrics as one (T,) f32
-        vector in the JAX order (`metric_keys`, `metric_sizes`). On the
-        card, without a mesh or debug_nans, it is a `graphs.StepGraph`: the
+        vector in the JAX order (`metric_keys`, `metric_sizes`). Where
+        `train_mode` says "graph" (on the card, without debug_nans, under an
+        NCCL mesh too: the twin of `jax.jit(train_step, in_shardings=...)`,
+        `mesh_lib.make_sharded_train_step`) it is a `graphs.StepGraph`: the
         first call runs eagerly (under the sync debug mode "error"),
-        captures, and later calls replay. It is made once per runner
+        captures, and later calls replay; a failed capture raises. It is made once per runner
         and kept (made anew only for a state of another structure): a later
         `rs` is loaded into its storage. The parameters, Adam states and
         learning rates are updated in place (`load` and `reset_train_state`
@@ -498,8 +505,11 @@ class OnPolicyRunner:
         chunk; the previous chunk's metrics are processed on the host while
         the current chunk runs, and `learn` blocks only at saves, evals and
         the end. `GO2_SYNC_TRAIN=1` runs one iteration per chunk and blocks
-        after each. On the CPU, under a mesh or with `debug_nans` the same
-        loop runs the in-place step eagerly.
+        after each. Under an NCCL mesh every rank replays its graph in the
+        same chunks (the twin of the sharded `_jit_train_chunk`), rank 0
+        logs, and saves, with their all_gathers, run eagerly between chunks
+        on the same communicator. On the CPU, under a gloo mesh or with
+        `debug_nans` the same loop runs the in-place step eagerly.
 
         Logs every `log_every` iterations (and the last), prints every
         `print_every`, saves model_<it>.pt after iteration <it> when <it> is

@@ -27,9 +27,11 @@ nothing falls back to eager execution.
 from __future__ import annotations
 
 import time
+import traceback
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # captures made, by kind ("train_step", "env_step")
 CAPTURES: Dict[str, int] = {"train_step": 0, "env_step": 0}
@@ -189,7 +191,10 @@ class StepGraph:
     of the state is registered with the graph.
     `kind` names the capture in `CAPTURES`. Attributes after the capture:
     `capture_s` (capture and instantiation), `pool_bytes` (device memory
-    the capture reserved), `captures` (this object's)."""
+    the capture reserved), `captures` (this object's). Under an NCCL
+    process group the collectives are captured with the rest, in the
+    default ("global") capture mode: the communicator exists before the
+    capture and the warm-up has issued every collective once."""
 
     def __init__(self, step: InPlaceStep, kind: str):
         self.step = step
@@ -242,6 +247,35 @@ class StepGraph:
             return out
         self.graph.replay()
         return self.out
+
+
+class HostReads(TorchDispatchMode):
+    """The capture-safety sentinel: a dispatch mode that records every op
+    that reads the device from the host (`aten._local_scalar_dense`),
+    builds a tensor from host data (`aten.lift_fresh`) or takes a
+    data-dependent shape (`aten.nonzero`, a boolean-mask index), with the
+    port's innermost source line. A step on which it records nothing can be
+    captured."""
+
+    OPS = {"aten._local_scalar_dense.default", "aten.lift_fresh.default",
+           "aten.nonzero.default"}
+
+    def __init__(self):
+        super().__init__()
+        self.hits = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        mask = name == "aten.index.Tensor" and any(
+            isinstance(i, torch.Tensor) and i.dtype == torch.bool
+            for i in args[1] if i is not None)
+        if name in self.OPS or mask:
+            lines = [f"{f.filename.split('go2_rl_gym_tpu_torch/')[-1]}:"
+                     f"{f.lineno}" for f in traceback.extract_stack()
+                     if "go2_rl_gym_tpu_torch" in f.filename
+                     and not f.filename.endswith("utils/graphs.py")]
+            self.hits.append((name, lines[-1] if lines else "?"))
+        return func(*args, **(kwargs or {}))
 
 
 def flat_metrics(keys: List[str]):

@@ -4,9 +4,10 @@ On the card the train iteration is one CUDA graph, captured once and
 replayed; a graph replays fixed addresses and cannot read the device from
 the host. These tests hold what makes that possible, on the CPU:
 
-* The host-read sentinel: a TorchDispatchMode over the second `train_step`
-  of five tasks (go2_moe_cts, go2_dual_moe_cts, go2, go2_lstm,
-  go2_fast_flat_move) and over `env.step` (heading command on) fails on
+* The host-read sentinel (`graphs.HostReads`): a TorchDispatchMode over
+  the second `train_step` of five tasks (go2_moe_cts, go2_dual_moe_cts,
+  go2, go2_lstm, go2_fast_flat_move) and over `env.step` (heading command
+  on) fails on
   `aten._local_scalar_dense` (a value read back), `aten.lift_fresh` (a
   tensor built from host data, which copies from the host), `aten.nonzero`
   and a boolean-mask index (data-dependent shapes).
@@ -24,7 +25,6 @@ Small: 8 envs on a 2 x 2 terrain, 2 policy steps per iteration.
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
 from go2_rl_gym_tpu_torch.utils import graphs, registry
@@ -32,8 +32,6 @@ from go2_rl_gym_tpu_torch.utils import graphs, registry
 N, T = 8, 2
 TASKS = ("go2_moe_cts", "go2_dual_moe_cts", "go2", "go2_lstm",
          "go2_fast_flat_move")
-HOST_READS = {"aten._local_scalar_dense.default", "aten.lift_fresh.default",
-              "aten.nonzero.default"}
 # the algorithms' train state besides the parameters: PPO's or CTS's
 TRAIN_STATE = ("opt", "opt1", "opt2", "lr", "lr2")
 
@@ -56,28 +54,6 @@ def small_runner(task, log_dir=None, steps=T):
     env = registry.make_env(task, env_cfg, num_envs=N,
                             num_steps_per_env=steps, device="cpu")
     return OnPolicyRunner(env, tc, log_dir=log_dir, device="cpu")
-
-
-class HostReads(TorchDispatchMode):
-    """Records every op that reads the device from the host or builds a
-    tensor from host data, with the port's innermost source line."""
-
-    def __init__(self):
-        super().__init__()
-        self.hits = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = str(func)
-        mask = name == "aten.index.Tensor" and any(
-            isinstance(i, torch.Tensor) and i.dtype == torch.bool
-            for i in args[1] if i is not None)
-        if name in HOST_READS or mask:
-            import traceback
-            lines = [f"{f.filename.split('go2_rl_gym_tpu_torch/')[-1]}:"
-                     f"{f.lineno}" for f in traceback.extract_stack()
-                     if "go2_rl_gym_tpu_torch" in f.filename]
-            self.hits.append((name, lines[-1] if lines else "?"))
-        return func(*args, **(kwargs or {}))
 
 
 @pytest.fixture(scope="module", params=TASKS)
@@ -131,7 +107,7 @@ def test_train_step_reads_nothing_from_the_host(task_runner):
     task, runner, rs0, ts = task_runner
     rs = _restore(runner, rs0, ts)
     rs, _ = runner.train_step(rs)       # first calls fill lazy caches
-    mode = HostReads()
+    mode = graphs.HostReads()
     with mode:
         runner.train_step(rs)
     assert mode.hits == [], f"{task}: {sorted(set(mode.hits))}"
@@ -147,7 +123,7 @@ def test_env_step_reads_nothing_from_the_host():
     acts = torch.zeros((N, env.num_actions))
     with torch.no_grad():
         state, _ = env.step(state, acts)
-        mode = HostReads()
+        mode = graphs.HostReads()
         with mode:
             env.step(state, acts + 0.1)
     assert mode.hits == [], sorted(set(mode.hits))
@@ -160,7 +136,7 @@ def test_sentinel_sees_a_tensor_from_host_data():
     for fn in (lambda: x * torch.tensor([1.0, 2.0, 3.0]),
                lambda: float(x.sum()),
                lambda: x[x > 0]):
-        mode = HostReads()
+        mode = graphs.HostReads()
         with mode:
             fn()
         assert mode.hits, fn
