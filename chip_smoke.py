@@ -103,6 +103,13 @@ Phases (any failure exits non-zero and prints no result line):
    env-steps/s per iteration of 2 eager and graphed iterations
    alternating, with the device ms of each replay (CUDA events) and the
    host ms of the replay call.
+   Bench (go2_rl_gym_tpu_torch/bench.py, the twin of bench.py), after
+   train graph: `bench.run` at 4096 envs, 2 iterations per dispatch, 1
+   timed dispatch; its JSON line printed; every key, value = iters x 24 x
+   N / median_dispatch_s; the guard held (1 capture, no patch launch from
+   the host in any replay: 49 launches in the run, 1 in the init step's
+   env.step and 24 each in the warm-up and the capture); deterministic
+   algorithms off.
    Train ddp graph (the compiled step under a mesh, after 9:
    mesh.make_sharded_train_step, OnPolicyRunner.compiled_step under
    NCCL): torch.cuda.device_count() NCCL ranks under torch.distributed.run
@@ -154,9 +161,17 @@ Phases (any failure exits non-zero and prints no result line):
    (torch.profiler), and the same for tengine's production physics step.
 13. Profile (go2_rl_gym_tpu_torch/tools/profile_rollout.py, the twins of
    tools/profile_physics.py and tools/bench_decompose.py), at 4096 envs on
-   the flagship terrain: the op tables of the modes physics (tengine's
-   physics step), substep (one N-major substep) and env (env.step), 3
-   traced calls each, top 10 rows printed; then the stage decomposition
+   the flagship terrain. First one profiled replay of the go2_moe_cts train
+   graph, captured with deterministic algorithms on, in this process
+   (tools/trace_window.py's `capture` and `profile_replay`; its kernels
+   are printed beside the launches whose kernel its trace lacks): after
+   such replays a profiler window opened at once lost the kernels
+   launched in its first milliseconds, the patch kernel among them (the
+   graph is kept until the tables are made). Then the op tables of the
+   modes physics (tengine's physics step) 3 times, substep (one N-major
+   substep) and env (env.step), 3 traced calls each, top 10 rows printed
+   (a table whose trace lacks the kernel of a launch raises); then the
+   stage decomposition
    physics / env / rollout / train (10 timed calls each for physics and
    env, 2 for rollout and train). Each table's total self device time must
    lie within 1% of the profiler's kernel sum in the same trace; in physics
@@ -208,6 +223,7 @@ SUBSTEP_TOL = dict(base_pos=1e-5, base_quat=1e-5, q=1e-5, base_lin_vel=1e-4,
 CROSS_TOL = dict(base_pos=2e-4, q=2e-3, qd=0.1, base_quat=2e-4)
 PROFILE_ITERS = 3               # traced calls per op table
 PROFILE_TOP = 10                # rows printed per op table
+PROFILE_AFTER_REPLAY = 3        # physics tables after the profiled replay
 DECOMPOSE_ITERS = {"rollout": 2, "train": 2}    # physics and env: 10
 
 
@@ -777,6 +793,48 @@ def phase_train_graph():
     return {"extract_patches": captured_total}
 
 
+BENCH_ITERS = 2                 # iterations per dispatch of phase bench
+BENCH_REPS = 1                  # timed dispatches of phase bench
+BENCH_KEYS = {"metric", "value", "unit", "median_dispatch_s",
+              "all_dispatch_s", "first_dispatch_s", "iters_per_dispatch",
+              "num_envs", "task", "capture_s", "name", "power_limit",
+              "guard"}
+
+
+def phase_bench():
+    """go2_rl_gym_tpu_torch.bench.run, short (see the module docstring).
+    Returns the run's patch launches (the init step's, the warm-up's and
+    the capture's)."""
+    import torch
+    from go2_rl_gym_tpu_torch import bench
+    from go2_rl_gym_tpu_torch.utils import graphs
+
+    reset_launch_counts()
+    caps0 = graphs.CAPTURES["train_step"]
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    res = bench.run(NUM_ENVS, iters=BENCH_ITERS, reps=BENCH_REPS)
+    print("bench: " + json.dumps(res))
+    launches = launch_counts()["extract_patches"]
+    caps = graphs.CAPTURES["train_step"] - caps0
+    print(f"bench: {caps} capture, {launches} patch launches in the run "
+          f"(want {1 + 2 * STEPS}: the init step 1, the warm-up and the "
+          f"capture {STEPS} each, the replays 0), deterministic algorithms "
+          f"{'on' if deterministic else 'off'}")
+    bad = []
+    if set(res) != BENCH_KEYS:
+        bad.append(f"keys {sorted(set(res) ^ BENCH_KEYS)}")
+    if caps != 1 or launches != 1 + 2 * STEPS or deterministic:
+        bad.append(f"{caps} captures, {launches} patch launches, "
+                   f"deterministic {deterministic}")
+    want = BENCH_ITERS * STEPS * NUM_ENVS / res["median_dispatch_s"]
+    if not (math.isfinite(res["value"]) and res["value"] > 0
+            and abs(res["value"] - want) <= 1e-9 * want):
+        bad.append(f"value {res['value']}, want {want}")
+    if bad:
+        raise AssertionError(f"bench: {bad}")
+    return launch_counts()
+
+
 def run_ranks(cmds):
     """Run the commands at once, each in its own session with its output
     in a file under DDP_DIR (no pipe for a surviving child to hold), and
@@ -883,7 +941,9 @@ def phase_train_ddp():
               f"metrics under torch.profiler: {prof['wall_ms']:.1f} ms wall, "
               f"device busy "
               f"{prof['device_busy_ms']:.1f} ms in {prof['launches']} "
-              f"launches, NCCL kernels {prof['nccl_device_ms']:.3f} ms in "
+              f"launches ({prof['lost_launches']} launches whose kernel "
+              f"the trace lacks), NCCL kernels "
+              f"{prof['nccl_device_ms']:.3f} ms in "
               f"{prof['nccl_launches']}; collective calls [count, host ms]: "
               f"{json.dumps(prof['collective_calls_host_ms'])}")
     m = res[0]["metrics"]
@@ -1024,9 +1084,10 @@ def phase_train_ddp_graph():
               f"{[round(v, 3) for v in rr['times']['compiled_device_ms']]}; "
               f"the update's gathers (one all_gather each, CUDA events over "
               f"5): " + json.dumps(rr["gathers"]) + f"; one replay under "
-              f"torch.profiler: {prof['launches']} kernel launches, "
-              f"{prof['device_ms']:.3f} device ms, NCCL kernels and memcpy "
-              f"rows [name, count, ms]: " + json.dumps(
+              f"torch.profiler: {prof['launches']} kernel launches "
+              f"({prof['lost_launches']} launches whose kernel the trace "
+              f"lacks), {prof['device_ms']:.3f} device ms, NCCL kernels "
+              f"and memcpy rows [name, count, ms]: " + json.dumps(
                   prof["nccl_or_memcpy"]))
     one = res[0][2]
     print(f"train ddp graph go2_moe_cts without a mesh ({NUM_ENVS} envs in "
@@ -1034,7 +1095,9 @@ def phase_train_ddp_graph():
           f"{[round(v, 3) for v in one['times']['compiled_ms']]}, device ms "
           f"{[round(v, 3) for v in one['times']['compiled_device_ms']]}; one "
           f"replay under torch.profiler: {one['profiled']['launches']} kernel "
-          f"launches, {one['profiled']['device_ms']:.3f} device ms")
+          f"launches ({one['profiled']['lost_launches']} launches whose "
+          f"kernel the trace lacks), {one['profiled']['device_ms']:.3f} "
+          f"device ms")
     logged = moe[0]["learn"]
     finite = bool(logged) and all(math.isfinite(v) for t in logged.values()
                                   for v in t.values())
@@ -1474,14 +1537,26 @@ def phase_engine():
 
 def phase_profile():
     """The op tables and the stage decomposition of
-    go2_rl_gym_tpu_torch/tools/profile_rollout.py (see the module
-    docstring). Returns the phase's patch launches."""
+    go2_rl_gym_tpu_torch/tools/profile_rollout.py, after a profiled CUDA
+    graph replay in this process (see the module docstring). Returns the
+    phase's patch launches."""
+    import torch
     from go2_rl_gym_tpu_torch.tools import profile_rollout as pr
+    from go2_rl_gym_tpu_torch.tools import trace_window
 
     reset_launch_counts()
-    setup = None
+    setup = pr.build("physics", NUM_ENVS, "cuda")
+    t = time.perf_counter()
+    graph, graph_runner = trace_window.capture(setup)
+    replay = trace_window.profile_replay(graph, setup.env.device)
+    print(f"profile: one profiled replay of the go2_moe_cts train graph "
+          f"(captured with deterministic algorithms on, its window opened "
+          f"at once): {replay['kernels']} kernels, {replay['lost']} "
+          f"launches whose kernel the trace lacks; "
+          f"{time.perf_counter() - t:.1f} s with the warm-up and the "
+          f"capture; the op tables follow in this process")
     bad = []
-    for mode in ("physics", "substep", "env"):
+    for mode in ("physics",) * PROFILE_AFTER_REPLAY + ("substep", "env"):
         setup = pr.build(mode, NUM_ENVS, "cuda", like=setup)
         res = pr.op_table(setup, iters=PROFILE_ITERS, top=PROFILE_TOP)
         rows = res["rows"]
@@ -1515,6 +1590,9 @@ def phase_profile():
         if [(r["calls"], r["launches"]) for r in patch] != [(1.0, 1.0)] or (
                 res["patch_kernel_launches"] != PROFILE_ITERS):
             bad.append(f"{mode}: extract_patches rows {patch}")
+    del graph, graph_runner
+    gc.collect()
+    torch.cuda.empty_cache()
     dec = pr.decompose(["physics", "env", "rollout", "train"], NUM_ENVS,
                        "cuda", iters=DECOMPOSE_ITERS, like=setup)
     print("profile decompose: " + json.dumps(dec))
@@ -1617,6 +1695,7 @@ def main():
               ("train go2_fast_flat_move",
                lambda: phase_train("go2_fast_flat_move", iterations=1)),
               ("train graph", phase_train_graph),
+              ("bench", phase_bench),
               ("export + eval", lambda: phase_export_eval(shared)),
               ("play checkpoint", lambda: phase_play_checkpoint(shared)),
               ("train ddp", phase_train_ddp),

@@ -28,7 +28,8 @@ torch.distributed.run's environment. JOB.pt (torch.save) holds {"jobs":
   "checkpoint" (a path) the ranks then `save` there and `load` it back,
   and the result says whether every tensor and generator came back equal;
   with "profile" one more iteration runs with torch.profiler on from the
-  rollout's end (GAE, update, metrics: every collective of it).
+  rollout's end (GAE, update, metrics: every collective of it; with the
+  launches whose kernel its trace lacks).
 * "dryrun": the graft dry run (graft_entry.dryrun_multichip): the runner
   of the job's config, `init_runner_state(0)` and the compiled step
   (`mesh.make_sharded_train_step`) called twice: one iteration (on the card
@@ -48,7 +49,8 @@ torch.distributed.run's environment. JOB.pt (torch.save) holds {"jobs":
   them on) pairs alternating (host ms ending in a synchronize, the device
   ms of each compiled call by CUDA events), the update's
   gathers (shapes, bytes, device ms of one by CUDA events) and the NCCL
-  and memcpy rows of one profiled compiled call; with "learn" n, `learn`
+  and memcpy rows of one profiled compiled call (with the launches whose
+  kernel its trace lacks: the window opens at once); with "learn" n, `learn`
   of n iterations on the same runner (saving under "log_root" if given)
   and rank 0's logged metrics; "seconds" times each part. With "no_mesh"
   the rank runs all of it on one process's runner of the `num_envs` envs
@@ -439,7 +441,8 @@ def _time_compiled(runner, step, pairs, mesh):
     compiled step (its graph captured with them on) alternating on the
     runner, the update's gathers timed alone, and one compiled call under
     torch.profiler."""
-    from go2_rl_gym_tpu_torch.tools.profile_rollout import _device_us, _kernels
+    from go2_rl_gym_tpu_torch.tools.profile_rollout import (
+        _device_us, _kernels, launches_without_kernel)
     dev = runner.device
     cuda = dev.type == "cuda"
     rs = graphs.copy_tree(step.state)
@@ -509,6 +512,7 @@ def _time_compiled(runner, step, pairs, mesh):
     return {"times": times, "gathers": gathers, "profiled": {
         "launches": sum(e.count for e in kernels),
         "device_ms": sum(_device_us(e) for e in kernels) / 1e3,
+        "lost_launches": len(launches_without_kernel(prof.events())),
         "nccl_or_memcpy": rows}}
 
 
@@ -571,8 +575,10 @@ def _profile_iteration(runner, rs, sync):
     end (GAE, the update and the metrics: every collective of the
     iteration, without the rollout's ~180k launches): its wall time, the
     device's busy time and launches, the NCCL kernels among them, and the
-    host time of the collective calls by name."""
-    from go2_rl_gym_tpu_torch.tools.profile_rollout import _device_us, _kernels
+    host time of the collective calls by name, and the launches whose
+    kernel the trace lacks."""
+    from go2_rl_gym_tpu_torch.tools.profile_rollout import (
+        _device_us, _kernels, launches_without_kernel)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if runner.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -598,6 +604,7 @@ def _profile_iteration(runner, rs, sync):
     return {"wall_ms": wall_ms,
             "device_busy_ms": sum(_device_us(e) for e in kernels) / 1e3,
             "launches": sum(e.count for e in kernels),
+            "lost_launches": len(launches_without_kernel(prof.events())),
             "nccl_device_ms": sum(_device_us(e) for e in nccl) / 1e3,
             "nccl_launches": sum(e.count for e in nccl),
             "collective_calls_host_ms": calls}

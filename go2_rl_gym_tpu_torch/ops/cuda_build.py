@@ -4,8 +4,9 @@ The kernel source under ``ops/csrc/`` exposes a plain C launch function (no
 PyTorch headers). ``load`` compiles it with ``nvcc`` for Hopper (``sm_90a``)
 into a shared library under ``build/kernels/`` at the repository root, if
 that library is missing, and binds the launch function with ``ctypes``. The
-library name carries a hash of the source, so an edited source is rebuilt
-and an unchanged one is reused within a checkout.
+library name carries a hash of the source and of the nvcc flags, so an
+edited source or a change of flags is rebuilt, and an unchanged pair is
+reused within a checkout.
 
 Nothing here runs at import: the kernel is built on its first launch.
 """
@@ -35,11 +36,12 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """build/kernels/lib<stem>-<hash of the source>.so for a package-relative
-    source path."""
+    """build/kernels/lib<stem>-<hash of the source and NVCC_FLAGS>.so for a
+    package-relative source path."""
     src = PACKAGE_DIR / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(source: str) -> str:

@@ -42,7 +42,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 
 def get_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--task", default="go2_moe_cts", help="task name")
+    p.add_argument("--task", default="go2", help="task name")
     p.add_argument("--num_envs", type=int, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--max_iterations", type=int, default=None)

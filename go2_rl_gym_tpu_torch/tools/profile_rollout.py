@@ -16,7 +16,10 @@ the flagship go2_moe_cts on the full rough terrain by default; `go2` and
 3. profiles `--steps` more rollout steps with torch.profiler: device busy
    time against wall time in that window (`device_idle_share_profiled`;
    the profiler's host overhead stretches the wall time), kernel launches
-   per step, and the kernels that take the most device time.
+   per step, the launches whose kernel the trace lacks
+   (`lost_launches`: its window opens at once, so a nonzero count means
+   the launch and busy figures are short), and the kernels that take the
+   most device time.
 
 `device_idle_share_est` is an estimate across two windows: the busy time
 per step of window 3 over the unprofiled step time of window 2. No single
@@ -32,6 +35,10 @@ untimed iteration):
 3. one more iteration with the profiler on for the update only: the
    update's launches and its device busy share (busy time over the
    update's wall time).
+
+Both traces of 2 and 3 open their windows at once; `lost_launches` counts,
+for each, the launches whose kernel the trace lacks (nonzero: its launch
+and busy figures are short).
 
 `--ops` and `--decompose` build what the JAX tools build (`build`): Go2Cfg()
 at `--num_envs` envs (default: the BENCH_NUM_ENVS variable, else 4096),
@@ -49,7 +56,11 @@ of init_state(0), and per mode:
   state, zero torque, implicit damping 0.5, beside tengine's `physics`.
 
 With `--ops MODE` (twin of tools/profile_physics.py), one warm-up call,
-then `--iters` calls (3; 1 for train) under torch.profiler. Every op that
+then `--iters` calls (3; 1 for train) under torch.profiler, whose window
+opens after the warm-up call has run with its device tracing on, the
+traced calls starting WINDOW_PAD_S later (`window`: a trace can lack the
+kernels launched in the first milliseconds of its window; a table whose
+trace lacks the kernel of a launch raises). Every op that
 launched device work gets its self device time: each kernel counts once,
 at the op around its launch call, so nothing nested is counted twice
 (aten::einsum -> aten::bmm -> kernel counts at aten::bmm). Each op is
@@ -63,8 +74,10 @@ patch kernel, launched through ctypes and not by an op of torch, counts
 at its own range (`extract_patches`). Prints the JAX tool's header and rows (ms per call,
 percent, op, source), then one JSON line: the rows, the total, the share
 of it with a source line, the sum of the profiler's kernel times, the
-kernel launches per call, the patch kernel's launches, the trace's and
-its reduction's seconds. With `--device cpu` there is no device activity:
+kernel launches per call, the patch kernel's launches, the seconds of the
+traced calls (`trace_s`: from the first traced call to the synchronize
+after the last, without the profiler's start, pad and flush) and of the
+reduction (`reduce_s`). With `--device cpu` there is no device activity:
 the table then ranks self CPU time, and the JSON says so
 (`"time": "host"`).
 
@@ -93,6 +106,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -165,14 +179,64 @@ def host_ms(fn, iters, device=torch.device("cuda")):
     return (time.perf_counter() - t) * 1e3 / iters
 
 
+# host seconds between the opening of a trace window and its first call
+WINDOW_PAD_S = 0.1
+
+
+@contextlib.contextmanager
+def window(acts, lead_in: Callable[[], None]):
+    """torch.profiler over the body of the `with`, its trace window opened
+    only after `lead_in()` has run with the profiler's device tracing
+    already on (the profiler's own warm-up, `prepare_trace`; what the
+    lead-in launches lies before the window and is dropped), and the body
+    started WINDOW_PAD_S after the opening.
+
+    A trace can hold the launch calls of the kernels launched in the first
+    milliseconds of its window but not the kernels: on an H100, after
+    profiled replays of a CUDA graph of the train iteration in the same
+    process, a window opened with the tracing, as torch.profiler.profile
+    opens it, lacked the first kernels of a traced physics step, the patch
+    kernel among them, and one opened after a lead-in but with no pad
+    still did at times (tools/trace_window.py compares this window with
+    one opened at once). Check a trace with
+    `launches_without_kernel`. Yields the profiler; its events are read
+    after the `with`."""
+    prof = torch.profiler.profile(activities=acts)
+    prof.prepare_trace()
+    lead_in()
+    prof.start_trace()
+    try:
+        time.sleep(WINDOW_PAD_S)
+        yield prof
+    finally:
+        prof.stop_trace()
+
+
+def launches_without_kernel(events):
+    """The kernel launch calls of a trace (cudaLaunchKernel and kin, made
+    inside its window) whose kernel the trace lacks: no device event
+    carries their correlation id."""
+    cpu = torch.autograd.DeviceType.CPU
+    ids = {e.id for e in events
+           if e.device_type != cpu and not e.is_user_annotation}
+    return [e for e in events if e.device_type == cpu
+            and e.name.startswith("cu") and "Launch" in e.name
+            and "Kernel" in e.name and e.time_range.start >= 0
+            and e.id not in ids]
+
+
 def profiled(fn, reps=5):
     """(host ms per call, kernel launches per call, device-busy ms per call)
     on the card: the host clock over `reps` calls ended by a synchronize,
-    after one warm-up call; then one call under torch.profiler."""
+    after one warm-up call; then one call under torch.profiler (`window`,
+    one more call as its lead-in)."""
     ms = host_ms(fn, reps)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    def lead_in():
+        fn()
+        torch.cuda.synchronize()
+    with window([torch.profiler.ProfilerActivity.CPU,
+                 torch.profiler.ProfilerActivity.CUDA], lead_in) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = _kernels(prof)
@@ -381,28 +445,41 @@ def op_rows(events, names, device_time):
 
 def op_table(setup: Setup, iters=None, top=40):
     """The op table of `setup`'s mode (see the module docstring): one
-    warm-up call, then `iters` calls (3; 1 for train) under torch.profiler
-    and `SourceLines`. Returns the JSON object, with every row."""
+    warm-up call as the lead-in of the profiler's `window`, then `iters`
+    calls (3; 1 for train) under torch.profiler and `SourceLines`. Raises
+    if the trace lacks the kernel of a launch it holds (see `window`),
+    rather than return a table that has lost it. Returns the JSON object,
+    with every row; its `trace_s` covers the traced calls only, not the
+    profiler's start, pad and flush."""
     dev = setup.env.device
     on_card = dev.type == "cuda"
     iters = iters or (1 if setup.mode == "train" else 3)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if on_card:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    setup.fn(*setup.args)
-    _sync(dev)
+
+    def warm_up():
+        setup.fn(*setup.args)
+        _sync(dev)
     lines = SourceLines()
-    patch0 = tp.LAUNCHES["extract_patches"]
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
+    with window(acts, warm_up) as prof:
+        patch0 = tp.LAUNCHES["extract_patches"]
+        t0 = time.perf_counter()
         with lines:
             for _ in range(iters):
                 setup.fn(*setup.args)
         _sync(dev)
-    trace_s = time.perf_counter() - t0
-    patch = tp.LAUNCHES["extract_patches"] - patch0
+        trace_s = time.perf_counter() - t0
+        patch = tp.LAUNCHES["extract_patches"] - patch0
     t0 = time.perf_counter()
-    rows, kernel_us, kernel_n = op_rows(prof.events(), lines.names, on_card)
+    events = prof.events()
+    lost = launches_without_kernel(events)
+    if lost:
+        first = [(e.name, e.time_range.start) for e in lost[:3]]
+        raise RuntimeError(f"op_table {setup.mode}: the trace lacks the "
+                           f"kernels of {len(lost)} launches, the first "
+                           f"{first} (us into the window)")
+    rows, kernel_us, kernel_n = op_rows(events, lines.names, on_card)
     reduce_s = time.perf_counter() - t0
     total = sum(r[0] for r in rows.values())
     with_src = sum(r[0] for (_, where), r in rows.items() if where)
@@ -487,6 +564,7 @@ def profile_train(runner, rs, top, task):
         torch.cuda.synchronize()
         wall = {"iteration": (time.perf_counter() - t0) * 1e3}
     patch_launches = tp.LAUNCHES["extract_patches"]
+    lost = {"iteration": len(launches_without_kernel(prof.events()))}
 
     # 3. the update alone under the profiler, in one more iteration (the
     # profiler starts and stops at the phase marks)
@@ -502,6 +580,7 @@ def profile_train(runner, rs, top, task):
             prof_up.stop()
     runner.train_step(rs, mark=mark)
     wall["update"] = (clock["update"] - clock["gae"]) * 1e3
+    lost["update"] = len(launches_without_kernel(prof_up.events()))
 
     kernels = {"iteration": _kernels(prof), "update": _kernels(prof_up)}
     busy = {k: sum(_device_us(e) for e in v) / 1e3 for k, v in kernels.items()}
@@ -514,6 +593,7 @@ def profile_train(runner, rs, top, task):
         device_busy_share={k: busy[k] / wall[k] for k in wall},
         kernel_launches={k: sum(e.count for e in v)
                          for k, v in kernels.items()},
+        lost_launches=lost,
         patch_kernel_launches_per_iteration=patch_launches,
         top_update_kernels=[dict(name=e.key[:90], calls=e.count,
                                  device_ms=_device_us(e) / 1e3)
@@ -625,6 +705,7 @@ def main(argv=None):
         device_idle_share_profiled=1.0 - busy_ms / wall_ms,
         device_idle_share_est=1.0 - busy_ms / args.steps / step_ms,
         kernel_launches_per_step=launches / args.steps,
+        lost_launches=len(launches_without_kernel(prof.events())),
         patch_kernel_launches=dict(tp.LAUNCHES),
         top_kernels=[dict(name=e.key[:90], calls=e.count,
                           device_ms=_device_us(e) / 1e3) for e in top])

@@ -19,6 +19,7 @@ of the JAX package's tools/profile_physics.py and tools/bench_decompose.py.
 * The device-time reduction on made-up events: each kernel counts once, at
   the op that launched it, and a backward op takes its forward op's line.
 """
+import copy
 import dataclasses
 import inspect
 import json
@@ -37,6 +38,7 @@ from go2_rl_gym_tpu_torch.env.config import Go2Cfg as TCfg
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
 from go2_rl_gym_tpu_torch.tools import card_check
 from go2_rl_gym_tpu_torch.tools import profile_rollout as pr
+from go2_rl_gym_tpu_torch.tools import trace_window
 from test_torch_env import N, bridge_env_state
 
 
@@ -215,12 +217,12 @@ def test_without_a_card_the_default_device_raises(monkeypatch):
 
 def _event(name, parent=None, scope=0, seq=-1, thread=1, fwd_thread=1,
            device=torch.autograd.DeviceType.CPU, us=0.0, cid=0,
-           annotation=False):
+           annotation=False, start=0.0):
     return types.SimpleNamespace(
         name=name, cpu_parent=parent, scope=scope, sequence_nr=seq,
         thread=thread, fwd_thread=fwd_thread, device_type=device, id=cid,
         is_user_annotation=annotation, self_cpu_time_total=us,
-        time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+        time_range=types.SimpleNamespace(elapsed_us=lambda: us, start=start))
 
 
 def test_device_rows_count_each_kernel_once_at_its_source():
@@ -266,3 +268,87 @@ def test_device_rows_count_each_kernel_once_at_its_source():
         [src, _event("aten::mul", src, us=5.0)], {"sim/tengine.py:412"},
         False)
     assert rows == {("aten::mul", "sim/tengine.py:412"): [5.0, 1, 0]}
+
+
+def test_launches_without_kernel_are_the_lost_ones():
+    """A kernel launch inside the window whose correlation id no kernel
+    carries is lost; a launch before the window (the lead-in's), a copy
+    call and a launch whose id only a profiler range's device-side copy
+    carries are told apart."""
+    cuda = torch.autograd.DeviceType.CUDA
+    op = _event("aten::add")
+    events = [
+        _event("cudaLaunchKernel", op, cid=1, start=10.0),
+        _event("k1", device=cuda, cid=1),
+        _event("cudaLaunchKernel", op, cid=2, start=12.0),      # lost
+        _event("cuLaunchKernel", op, cid=3, start=14.0),        # lost
+        _event("cudaLaunchKernel", op, cid=4, start=-3.0),      # lead-in
+        _event("cudaMemcpyAsync", op, cid=5, start=16.0),       # no kernel
+        _event("cudaLaunchKernel", op, cid=6, start=18.0),      # lost
+        _event("extract_patches", device=cuda, cid=6, annotation=True),
+        _event("sim/tengine.py:412", cid=2, annotation=True),   # a CPU range
+    ]
+    lost = pr.launches_without_kernel(events)
+    assert [(e.name, e.id) for e in lost] == [
+        ("cudaLaunchKernel", 2), ("cuLaunchKernel", 3), ("cudaLaunchKernel", 6)]
+
+
+def test_op_table_raises_rather_than_lose_a_kernel(physics_setup,
+                                                   monkeypatch):
+    lost = _event("cudaLaunchKernel", cid=9, start=1428.8)
+    monkeypatch.setattr(pr, "launches_without_kernel", lambda events: [lost])
+    with pytest.raises(RuntimeError, match="lacks the kernels of 1 launch"):
+        pr.op_table(physics_setup, iters=1)
+
+
+def test_window_opens_after_the_lead_in():
+    """What the lead-in runs lies before the window and is not traced; the
+    body of the `with` is."""
+    def lead_in():
+        with torch.profiler.record_function("lead_in"):
+            torch.ones(4).add(1)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with pr.window(acts, lead_in) as prof:
+        with torch.profiler.record_function("body"):
+            torch.ones(4).mul(2)
+    names = {e.name for e in prof.events()}
+    assert "body" in names and "aten::mul" in names
+    assert "lead_in" not in names and "aten::add" not in names
+
+
+@pytest.mark.parametrize("kind", ["at once", "lead-in"])
+def test_trace_window_rows_on_the_cpu(physics_setup, kind):
+    """tools/trace_window.py's two windows over the physics step: on the
+    CPU there is no kernel to lose and none of the patch kernel."""
+    row = trace_window.trace(physics_setup, kind)
+    assert row == {"window": kind, "lost": 0, "first_lost_us": None,
+                   "patch_kernels": 0}
+
+
+def test_trace_window_capture_and_profiled_replay_on_the_cpu(physics_setup):
+    """`capture` (the graph that chip_smoke.py's phase profile replays under
+    the profiler before its op tables) leaves deterministic algorithms off
+    and captures nothing on the CPU, where the step is eager; one profiled
+    call then runs an iteration and reports no kernel and no lost launch.
+    The distributed check worker's profiled iteration (one process, no
+    mesh) reports its lost launches beside its launches."""
+    from go2_rl_gym_tpu_torch.distributed import check
+    from go2_rl_gym_tpu_torch.utils import graphs
+
+    # a short iteration: 2 policy steps, one epoch of one minibatch
+    tc = copy.deepcopy(physics_setup.tc)
+    tc.runner.num_steps_per_env = 2
+    tc.algorithm.num_learning_epochs = tc.algorithm.num_mini_batches = 1
+    captures = dict(graphs.CAPTURES)
+    step, runner = trace_window.capture(physics_setup._replace(tc=tc))
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert dict(graphs.CAPTURES) == captures
+    assert runner.env is physics_setup.env and runner.num_steps == 2
+    obs = step.state.obs.clone()
+    assert trace_window.profile_replay(step, torch.device("cpu")) == {
+        "kernels": 0, "lost": 0}
+    assert not torch.equal(step.state.obs, obs)
+    prof = check._profile_iteration(runner, graphs.copy_tree(step.state),
+                                    lambda: None)
+    assert (prof["launches"], prof["lost_launches"]) == (0, 0)
+    assert prof["wall_ms"] > 0
