@@ -51,11 +51,13 @@ Phases (any failure exits non-zero and prints no result line):
    patch launches (24 per iteration); the ranks' parameters must be equal,
    the losses finite, and a checkpoint saved by the ranks must load back
    equal on every rank; the GAE, update and metrics of one more iteration
-   under torch.profiler give the collectives' calls, host time and NCCL
-   kernel time. (b) Two gloo ranks on the one card, 2048 envs
-   each, take one train iteration from a seeded state with randomness off,
-   warm Adam moments and injected noise and permutations; one process on
-   the same card takes the same iteration: parameters within 1e-5 of it
+   under torch.profiler (its window opened at the rollout's end after a
+   lead-in; 0 launches whose kernel the trace lacks, on every rank) give
+   the collectives' calls, host time and NCCL kernel time. (b) Two
+   gloo ranks on the one card, 2048 envs each, take one train iteration
+   from a seeded state with randomness off, warm Adam moments and
+   injected noise and permutations; one process on the same card takes
+   the same iteration: parameters within 1e-5 of it
    and bitwise equal across the ranks. The iteration is cut to 6 policy
    steps: from step 9 on, robots spawned on the rough terrain start to fall
    and reset, and a reset draws from each rank's own generator.
@@ -81,11 +83,26 @@ Phases (any failure exits non-zero and prints no result line):
    tests/test_torch_eval_hook.py) and prints each evaluator's exit code and
    last stderr line. Prints the export ms of each kind, learn's env-steps/s
    of the two iterations and the evaluators' wall times.
-11. Main path, play checkpoint: scripts.play's checkpoint mode on the
-   model_2.pt of phase 10 at 16 envs with the play overrides (5 x 5
-   terrain): policy_jit.pt, policy.onnx and policy.pkl written, 24 finite
+11. Main path, train script: the commands a user types, each a process
+   of its own with a timeout, under build/train_script/. (a) `python -m
+   go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts --num_envs 4096
+   --max_iterations 14 --profile_dir ... --log_root ...` with no
+   launcher: on one card it trains in its process, on W cards it starts
+   W ranks itself (the `data-parallel over W ranks` line); it must print
+   `learn: graph (...)`, write model_14.pt, and trace iterations 10-12
+   (its window opened after a lead-in) into one trace per rank with
+   kernel launches above 0 and 0 launches whose kernel the trace lacks.
+   (b) The same with `--resume --max_iterations 1`: it must print
+   `resuming from .../model_14.pt` and write model_15.pt with finite
+   parameters. Each rank of (a) and (b) prints its patch launches, which
+   must be 49 (the init step, learn's warm-up and its capture; none from
+   learn's replays). (c) `python -m go2_rl_gym_tpu_torch.scripts.play
+   --log_root ...` with no --task: the latest checkpoint (model_15.pt)
+   exported as policy_jit.pt, policy.onnx and policy.pkl, 250 finite
    steps through the captured env.step, 3 patch launches (the init step,
-   the warm-up, the capture).
+   the warm-up, the capture) counted in its process and printed. Prints
+   the seconds of each command and learn's logged env-steps/s by
+   iteration.
    Train graph (utils/graphs.py, OnPolicyRunner.compiled_step), after 8:
    for go2_moe_cts, go2, go2_lstm and go2_fast_flat_move at 4096 envs, from
    one state at random episode lengths, with deterministic algorithms on
@@ -97,12 +114,15 @@ Phases (any failure exits non-zero and prints no result line):
    must every generator's state; 1 capture per runner; 24 patch launches
    in the warm-up and 24 captured on rough terrain, 0 on the plane, none
    from the replays. A save after the replays, loaded into an eager
-   runner, gives the next iteration equal to the graphed one's. Then, on a
-   runner of its own with deterministic algorithms off, as learn runs:
-   capture + instantiate s, the graph pool's bytes, and host ms and
-   env-steps/s per iteration of 2 eager and graphed iterations
-   alternating, with the device ms of each replay (CUDA events) and the
-   host ms of the replay call.
+   runner, gives the next iteration equal to the graphed one's. Then, on
+   a runner of its own with deterministic algorithms off, as learn runs
+   it: the warm-up and the capture (1 capture, capture + instantiate s,
+   the graph pool's bytes), then graphed iterations, none of whose replays
+   may launch the patch kernel from the host: for go2_moe_cts
+   (GRAPH_TIMED_TASKS) 2 eager and graphed iterations alternating, for
+   the other tasks one replay; host ms and env-steps/s per iteration, the
+   device ms of each replay (CUDA events) and the host ms of the replay
+   call.
    Bench (go2_rl_gym_tpu_torch/bench.py, the twin of bench.py), after
    train graph: `bench.run` at 4096 envs, 2 iterations per dispatch, 1
    timed dispatch; its JSON line printed; every key, value = iters x 24 x
@@ -126,16 +146,19 @@ Phases (any failure exits non-zero and prints no result line):
    env-steps/s (host clock ending in a synchronize) and the device ms of each replay (CUDA
    events); capture s and pool bytes; the update's all_gather alone (its
    bytes, device ms by CUDA events); the NCCL kernels and memcpy nodes of
-   one replay under torch.profiler; then learn(rs, 3) on the same runner
+   one replay under torch.profiler (its window opened after one more
+   replay as its lead-in: 0 launches whose kernel the trace lacks, on
+   every rank); then learn(rs, 3) on the same runner
    under the mesh (with saves under build/) must print "learn: graph (...)"
    and log finite metrics on rank 0. (b) go2_lstm at 1024 global envs, 2
    iterations each way: the same checks (the recurrent shares). (c) The
    reference for the mesh's cost: go2_moe_cts at 4096 envs in one
    process's runner (no mesh) on each rank's card, 1 iteration each way
    (the same checks), then one eager / graphed pair and one profiled
-   replay, printed beside (a)'s.
+   replay (0 lost launches), printed beside (a)'s.
    For 5 to 11 every launch count is set to 0 just before each run and
-   read just after (in the ranks' processes for 9); each eager
+   read just after (in the ranks' processes for 9, in play's for 11); each
+   eager
    rough-terrain policy step launches the patch kernel once (24 per eager
    train iteration), a capture records it once, a replay launches nothing
    from the host, and the plane none; obs and rewards must be finite.
@@ -163,12 +186,13 @@ Phases (any failure exits non-zero and prints no result line):
    tools/profile_physics.py and tools/bench_decompose.py), at 4096 envs on
    the flagship terrain. First one profiled replay of the go2_moe_cts train
    graph, captured with deterministic algorithms on, in this process
-   (tools/trace_window.py's `capture` and `profile_replay`; its kernels
-   are printed beside the launches whose kernel its trace lacks): after
+   (tools/trace_window.py's `capture` and `profile_replay`, its window
+   opened after one more replay; its kernels are printed beside the
+   launches whose kernel its trace lacks, which must be 0): after
    such replays a profiler window opened at once lost the kernels
    launched in its first milliseconds, the patch kernel among them (the
    graph is kept until the tables are made). Then the op tables of the
-   modes physics (tengine's physics step) 3 times, substep (one N-major
+   modes physics (tengine's physics step), substep (one N-major
    substep) and env (env.step), 3 traced calls each, top 10 rows printed
    (a table whose trace lacks the kernel of a launch raises); then the
    stage decomposition
@@ -196,8 +220,8 @@ import gc
 import json
 import math
 import os
+import shutil
 import signal
-import socket
 import subprocess
 import sys
 import threading
@@ -214,6 +238,8 @@ RANK_TIMEOUT_S = 400            # for any spawned process
 EXPORT_DIR = os.path.join(ROOT, "build", "export_eval")
 EVAL_TIMEOUT_S = 240            # for the evaluator processes of the hook
 EXPORT_SEQ = 7                  # obs fed through the exported policies
+TRAIN_SCRIPT_DIR = os.path.join(ROOT, "build", "train_script")
+TRAIN_SCRIPT_ITERS = 14         # iterations of phase train script's (a)
 ENGINE_SETTLE_STEPS = 20        # zero-action env steps from spawn to landed
 ENGINE_CPU_ENVS = 16            # envs the card engine is held against the CPU
 # single-substep tolerances (tests/test_torch_physics.py)
@@ -223,7 +249,6 @@ SUBSTEP_TOL = dict(base_pos=1e-5, base_quat=1e-5, q=1e-5, base_lin_vel=1e-4,
 CROSS_TOL = dict(base_pos=2e-4, q=2e-3, qd=0.1, base_quat=2e-4)
 PROFILE_ITERS = 3               # traced calls per op table
 PROFILE_TOP = 10                # rows printed per op table
-PROFILE_AFTER_REPLAY = 3        # physics tables after the profiled replay
 DECOMPOSE_ITERS = {"rollout": 2, "train": 2}    # physics and env: 10
 
 
@@ -597,6 +622,7 @@ def phase_train(task="go2_moe_cts", iterations=2):
 GRAPH_TASKS = ("go2_moe_cts", "go2", "go2_lstm", "go2_fast_flat_move")
 GRAPH_K = 3                     # iterations per run of phase train graph
 GRAPH_TIMED = 2                 # alternating eager / graphed timed pairs
+GRAPH_TIMED_TASKS = ("go2_moe_cts",)    # tasks with timed eager pairs
 
 
 def _spread(a, b):
@@ -738,8 +764,10 @@ def phase_train_graph():
             if step.captures != 1 or graphs.CAPTURES["train_step"] - caps0 != 1:
                 bad.append(f"{task}: {step.captures} captures")
 
-            # times, as learn runs: a runner of its own, deterministic
-            # algorithms off, its graph captured after its warm-up
+            del other
+            # as learn runs: a runner of its own, deterministic algorithms
+            # off, its graph captured after its warm-up; eager pairs for
+            # GRAPH_TIMED_TASKS, one replay for the others
             torch.use_deterministic_algorithms(False)
             timed = registry.make_runner(task, env, tc)
             rs_e = timed.init_runner_state(tc.seed,
@@ -748,15 +776,19 @@ def phase_train_graph():
             step_t()
             times = {"eager": [], "graphed": [], "replay_call": [],
                      "replay_device": []}
-            for _ in range(GRAPH_TIMED):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                rs_e, _ = timed.train_step(rs_e)
-                torch.cuda.synchronize()
-                times["eager"].append((time.perf_counter() - t) * 1e3)
+            replay_launches = 0
+            pairs = task in GRAPH_TIMED_TASKS
+            for _ in range(GRAPH_TIMED if pairs else 1):
+                if pairs:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    rs_e, _ = timed.train_step(rs_e)
+                    torch.cuda.synchronize()
+                    times["eager"].append((time.perf_counter() - t) * 1e3)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize()
+                n0 = launch_counts()["extract_patches"]
                 t = time.perf_counter()
                 start.record()
                 step_t()
@@ -765,25 +797,32 @@ def phase_train_graph():
                 torch.cuda.synchronize()
                 times["graphed"].append((time.perf_counter() - t) * 1e3)
                 times["replay_device"].append(start.elapsed_time(end))
+                replay_launches += launch_counts()["extract_patches"] - n0
             torch.use_deterministic_algorithms(True, warn_only=True)
             rate = {k: [round(steps * NUM_ENVS / (v / 1e3), 1)
                         for v in times[k]] for k in ("eager", "graphed")}
-            print(f"train graph {task}, times as learn runs (deterministic "
-                  f"algorithms off; capture + instantiate "
-                  f"{step_t.capture_s:.2f} s, graph pool {step_t.pool_bytes} "
-                  f"bytes): host ms per iteration (ending in a synchronize), "
-                  f"eager / graphed alternating: eager "
-                  f"{[round(v, 3) for v in times['eager']]}, graphed "
-                  f"{[round(v, 3) for v in times['graphed']]}; env-steps/s "
-                  f"eager {rate['eager']}, graphed {rate['graphed']}; "
+            print(f"train graph {task}, as learn runs (deterministic "
+                  f"algorithms off; captures {step_t.captures}, capture + "
+                  f"instantiate {step_t.capture_s:.2f} s, graph pool "
+                  f"{step_t.pool_bytes} bytes; patch launches in "
+                  f"{len(times['graphed'])} replays {replay_launches}): "
+                  f"host ms per iteration (ending in a synchronize)"
+                  + (", eager / graphed alternating: eager "
+                     f"{[round(v, 3) for v in times['eager']]}," if pairs
+                     else ":")
+                  + f" graphed {[round(v, 3) for v in times['graphed']]}; "
+                  f"env-steps/s"
+                  + (f" eager {rate['eager']}," if pairs else "")
+                  + f" graphed {rate['graphed']}; "
                   f"device ms of one replay (CUDA events) "
                   f"{[round(v, 3) for v in times['replay_device']]}; host "
                   f"ms of the replay call "
                   f"{[round(v, 3) for v in times['replay_call']]}")
-            if step_t.captures != 1:
+            if step_t.captures != 1 or replay_launches:
                 bad.append(f"{task}: the timed runner captured "
-                           f"{step_t.captures} times")
-            del runner, other, step, env, timed, step_t
+                           f"{step_t.captures} times, its replays launched "
+                           f"the patch kernel {replay_launches} times")
+            del runner, step, env, timed, step_t
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -835,18 +874,20 @@ def phase_bench():
     return launch_counts()
 
 
-def run_ranks(cmds):
+def run_ranks(cmds, tag="cmd"):
     """Run the commands at once, each in its own session with its output
-    in a file under DDP_DIR (no pipe for a surviving child to hold), and
-    wait; after a failure or RANK_TIMEOUT_S every session gets SIGTERM
-    (torch.distributed.run then stops its workers, which run in sessions
-    of their own), and SIGKILL 30 s later. Returns the outputs; raises,
-    with each one's tail, if any command failed or timed out."""
+    in a file under DDP_DIR (<tag><i>.log; no pipe for a surviving child to
+    hold), and wait; after a failure or RANK_TIMEOUT_S every session gets
+    SIGTERM (torch.distributed.run, which scripts.train becomes for W
+    ranks, then stops its workers, which run in sessions of their own),
+    and SIGKILL 30 s later.
+    Returns the outputs; raises, with each one's tail, if any command
+    failed or timed out."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(
             os.pathsep) if p]))
     os.makedirs(DDP_DIR, exist_ok=True)
-    logs = [os.path.join(DDP_DIR, f"cmd{i}.log") for i in range(len(cmds))]
+    logs = [os.path.join(DDP_DIR, f"{tag}{i}.log") for i in range(len(cmds))]
     procs = []
     for c, log in zip(cmds, logs):
         with open(log, "w") as f:
@@ -896,6 +937,7 @@ def phase_train_ddp():
     counts of the ranks' last iteration, summed over the ranks."""
     import torch
     from go2_rl_gym_tpu_torch.distributed import check
+    from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 
     os.makedirs(DDP_DIR, exist_ok=True)
     world = torch.cuda.device_count()
@@ -935,10 +977,13 @@ def phase_train_ddp():
                 raise AssertionError(f"rank {r} parameter {k} differs")
     print(f"train ddp (a): checkpoint gathered by rank 0 and loaded back "
           f"by every rank: equal")
+    lost = [rr["profile"]["lost_launches"] for rr in res]
     for r, rr in enumerate(res):
         prof = rr["profile"]
         print(f"train ddp (a) rank {r}, one more iteration, GAE + update + "
-              f"metrics under torch.profiler: {prof['wall_ms']:.1f} ms wall, "
+              f"metrics under torch.profiler (its window opened at the "
+              f"rollout's end after a lead-in): {prof['wall_ms']:.1f} ms "
+              f"wall, "
               f"device busy "
               f"{prof['device_busy_ms']:.1f} ms in {prof['launches']} "
               f"launches ({prof['lost_launches']} launches whose kernel "
@@ -946,6 +991,9 @@ def phase_train_ddp():
               f"{prof['nccl_device_ms']:.3f} ms in "
               f"{prof['nccl_launches']}; collective calls [count, host ms]: "
               f"{json.dumps(prof['collective_calls_host_ms'])}")
+    if any(lost):
+        raise AssertionError(f"train ddp (a): the ranks' traces lost "
+                             f"{lost} launches")
     m = res[0]["metrics"]
     print("train ddp (a) metrics: " + json.dumps(
         {k: round(float(m[k]), 6) for k in ("value_loss", "surrogate_loss",
@@ -957,9 +1005,7 @@ def phase_train_ddp():
     job_path = os.path.join(DDP_DIR, "parity_job.pt")
     torch.save({"jobs": [job]}, job_path)
     out = os.path.join(DDP_DIR, "parity")
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    port = mesh_lib.free_port()
     cmds = [[sys.executable] + worker(job_path, out, "gloo", "cuda:0")
             + ["--coordinator", f"localhost:{port}", "--world", "2",
                "--rank", str(r)] for r in range(2)]
@@ -1079,6 +1125,9 @@ def phase_train_ddp_graph():
               f"env-steps/s per rank {per_rank}, total {total}")
     for r, rr in enumerate(moe):
         prof = rr["profiled"]
+        if prof["lost_launches"]:
+            bad.append(f"rank {r}: the profiled replay lost "
+                       f"{prof['lost_launches']} launches")
         print(f"train ddp graph go2_moe_cts rank {r}: device ms of a replay "
               f"(CUDA events) "
               f"{[round(v, 3) for v in rr['times']['compiled_device_ms']]}; "
@@ -1090,6 +1139,9 @@ def phase_train_ddp_graph():
               f"and memcpy rows [name, count, ms]: " + json.dumps(
                   prof["nccl_or_memcpy"]))
     one = res[0][2]
+    if one["profiled"]["lost_launches"]:
+        bad.append(f"the profiled replay without a mesh lost "
+                   f"{one['profiled']['lost_launches']} launches")
     print(f"train ddp graph go2_moe_cts without a mesh ({NUM_ENVS} envs in "
           f"one process on rank 0's card): host ms of a graphed iteration "
           f"{[round(v, 3) for v in one['times']['compiled_ms']]}, device ms "
@@ -1185,11 +1237,10 @@ def stacked_by_term(frames, term_dims=(3, 3, 3, 12, 12, 12)):
                            for t in range(len(term_dims))], axis=1)
 
 
-def phase_export_eval(shared, num_envs=NUM_ENVS, device="cuda"):
+def phase_export_eval(num_envs=NUM_ENVS, device="cuda"):
     """Train with the eval hook, then check every export of the trained
-    weights (see the module docstring). Leaves the run's log_root and
-    directory in `shared` for phase play checkpoint. Returns the launch
-    counts of the two iterations."""
+    weights (see the module docstring). Returns the launch counts of the
+    two iterations."""
     import numpy as np
     import torch
     import yaml
@@ -1227,7 +1278,6 @@ def phase_export_eval(shared, num_envs=NUM_ENVS, device="cuda"):
     finally:
         ev.kill_all()
     caps = graphs.CAPTURES["train_step"] - caps
-    shared.update(log_root=log_root, run=os.path.basename(runner.log_dir))
     calls = [b - a for a, b in zip([0] + calls[:-1], calls)]
     steps = tc.runner.num_steps_per_env
     print(f"export + eval: learn({iters}) with eval_interval 1 in "
@@ -1364,32 +1414,150 @@ def phase_export_eval(shared, num_envs=NUM_ENVS, device="cuda"):
     return counts
 
 
-def phase_play_checkpoint(shared, device="cuda"):
-    """scripts.play's checkpoint mode on phase export + eval's model_2.pt."""
-    from go2_rl_gym_tpu_torch.scripts import play
+def _fps_by_iteration(run_dir):
+    """learn's logged env-steps/s (Perf/total_fps) by iteration."""
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {r["step"]: r["value"] for r in rows
+            if r["tag"] == "Perf/total_fps"}
 
-    if "run" not in shared:
-        raise AssertionError("phase export + eval wrote no run")
-    reset_launch_counts()
-    res = play.main(["--task", "go2_moe_cts", "--log_root",
-                     shared["log_root"], "--load_run", shared["run"],
-                     "--checkpoint", "2", "--num_envs", "16", "--steps",
-                     str(STEPS), "--device", device])
-    counts = launch_counts()
-    print(f"play checkpoint: {os.path.relpath(res['checkpoint'], ROOT)} at "
-          f"16 envs, {STEPS} steps: mean reward per step "
-          f"{[round(r, 5) for r in res['mean_reward']]}; exported "
-          f"{sorted(res['exported'])}; launches {counts}")
+
+def _one_run(root):
+    runs = sorted(os.listdir(root))
+    if len(runs) != 1:
+        raise AssertionError(f"{root} holds runs {runs}, want one")
+    return os.path.join(root, runs[0])
+
+
+def _rank_launches(out, world, want):
+    """The `launches: {...}` lines of scripts.train's ranks in `out`: None
+    unless there is one per rank, each with `want` patch launches; else
+    their sum."""
+    rows = [json.loads(ln[len("launches: "):]) for ln in out.splitlines()
+            if ln.startswith("launches: ")]
+    if sorted(r["rank"] for r in rows) != list(range(world)) or any(
+            r["extract_patches"] != want for r in rows):
+        return None
+    return sum(r["extract_patches"] for r in rows)
+
+
+def phase_train_script():
+    """The user's commands as subprocesses (see the module docstring): (a)
+    scripts.train with --profile_dir, (b) --resume, (c) scripts.play with
+    no --task. Returns the patch launches that the processes printed."""
+    import torch
+    from go2_rl_gym_tpu_torch.utils import registry
+
+    world = torch.cuda.device_count()
+    # per rank: the init step, learn's warm-up and its capture; no replay
+    want = 1 + 2 * registry.get_cfgs(
+        "go2_moe_cts")[1].runner.num_steps_per_env
+    launches = {}
+    shutil.rmtree(TRAIN_SCRIPT_DIR, ignore_errors=True)
+    logs = os.path.join(TRAIN_SCRIPT_DIR, "logs")
+    prof_dir = os.path.join(TRAIN_SCRIPT_DIR, "profile")
+    exp = os.path.join(logs, "go2_moe_cts")
+    train = [sys.executable, "-m", "go2_rl_gym_tpu_torch.scripts.train",
+             "--task", "go2_moe_cts", "--num_envs", str(NUM_ENVS),
+             "--log_root", logs]
+    bad = []
+
+    # (a) train 14 iterations, 10-12 traced
+    t = time.perf_counter()
+    [out] = run_ranks([train + ["--max_iterations", str(TRAIN_SCRIPT_ITERS),
+                                "--profile_dir", prof_dir]], tag="train_a")
+    secs = {"train": time.perf_counter() - t}
+    run_a = _one_run(exp)
+    mode = [ln for ln in out.splitlines() if ln.startswith("learn: ")]
+    ranks = [ln for ln in out.splitlines() if ln.startswith("data-parallel")]
+    profiles = [json.loads(ln[len("profile: "):]) for ln in out.splitlines()
+                if ln.startswith("profile: ")]
+    fps = _fps_by_iteration(run_a)
+    launches["train"] = _rank_launches(out, world, want)
+    print(f"train script (a): {' '.join(train[1:])} --max_iterations "
+          f"{TRAIN_SCRIPT_ITERS} --profile_dir ... in {secs['train']:.1f} s "
+          f"on {world} card(s): {mode}; {ranks}; learn's env-steps/s by "
+          f"iteration (Perf/total_fps) " + json.dumps(fps)
+          + "; learn's lines " + json.dumps(
+              [ln for ln in out.splitlines() if ln.startswith("it ")]))
+    for p in profiles:
+        print("train script (a) trace: " + json.dumps(
+            dict(p, bytes=os.path.getsize(p["trace"]))))
+    last = f"model_{TRAIN_SCRIPT_ITERS}.pt"
+    if not mode or not mode[0].startswith("learn: graph ("):
+        bad.append(f"(a) mode {mode}")
+    if last not in os.listdir(run_a):
+        bad.append(f"(a) no {last} in {sorted(os.listdir(run_a))}")
+    if world > 1 and not any(f"data-parallel over {world} ranks" in ln
+                             for ln in ranks):
+        bad.append(f"(a) ranks {ranks}")
+    if sorted(p["rank"] for p in profiles) != list(range(world)) or any(
+            p["kernel_launches"] <= 0 or p["lost_launches"] != 0
+            or p["iterations"] != [10, 12] for p in profiles):
+        bad.append(f"(a) traces {profiles}")
+    if launches["train"] is None:
+        bad.append(f"(a) patch launches per rank, want {want}: " + str(
+            [ln for ln in out.splitlines() if ln.startswith("launches: ")]))
+
+    # (b) resume for one more iteration
+    t = time.perf_counter()
+    [out] = run_ranks([train + ["--resume", "--max_iterations", "1"]],
+                      tag="train_b")
+    secs["resume"] = time.perf_counter() - t
+    launches["resume"] = _rank_launches(out, world, want)
+    if launches["resume"] is None:
+        bad.append(f"(b) patch launches per rank, want {want}: " + str(
+            [ln for ln in out.splitlines() if ln.startswith("launches: ")]))
+    resumed = [ln for ln in out.splitlines()
+               if ln.startswith("resuming from")]
+    run_b = [os.path.join(exp, r) for r in sorted(os.listdir(exp))
+             if os.path.join(exp, r) != run_a]
+    nxt = f"model_{TRAIN_SCRIPT_ITERS + 1}.pt"
+    finite = None
+    if len(run_b) == 1 and nxt in os.listdir(run_b[0]):
+        ck = torch.load(os.path.join(run_b[0], nxt), map_location="cpu",
+                        weights_only=True)
+        params = ck["train_state"]["model"]
+        finite = all(bool(torch.isfinite(v).all()) for v in params.values()
+                     if v.is_floating_point())
+    print(f"train script (b): --resume --max_iterations 1 in "
+          f"{secs['resume']:.1f} s: {resumed}; runs "
+          f"{[os.path.basename(r) for r in run_b]}, {nxt} parameters finite "
+          f"{finite}; learn's env-steps/s " + json.dumps(
+              _fps_by_iteration(run_b[0]) if len(run_b) == 1 else {}))
+    if not (resumed and resumed[0].endswith(os.path.join(run_a, last))):
+        bad.append(f"(b) {resumed}")
+    if not finite:
+        bad.append(f"(b) {nxt} in {run_b}: finite {finite}")
+
+    # (c) play with no --task: the latest checkpoint, exported and rolled
+    t = time.perf_counter()
+    [out] = run_ranks([[sys.executable, "-m",
+                        "go2_rl_gym_tpu_torch.scripts.play", "--log_root",
+                        logs]], tag="play")
+    secs["play"] = time.perf_counter() - t
+    res = json.loads(out.strip().splitlines()[-1])
+    rollout = [ln for ln in out.splitlines() if "-step rollout" in ln]
+    print(f"train script (c): scripts.play --log_root ... in "
+          f"{secs['play']:.1f} s: {rollout}; " + json.dumps(res))
+    if len(run_b) == 1 and res["checkpoint"] != os.path.join(run_b[0], nxt):
+        bad.append(f"(c) played {res['checkpoint']}")
     if sorted(res["exported"]) != ["jit", "onnx", "pkl"] or not all(
             os.path.getsize(p) > 0 for p in res["exported"].values()):
-        raise AssertionError(f"exported {res['exported']}")
-    if not res["finite"]:
-        raise AssertionError("play checkpoint produced non-finite values")
-    # the init step, then env.step's eager warm-up and its capture
-    if counts["extract_patches"] != 3:
-        raise AssertionError(f"extract_patches launched "
-                             f"{counts['extract_patches']} times, want 3")
-    return counts
+        bad.append(f"(c) exported {res['exported']}")
+    # 250 steps: the init step, then env.step's warm-up and its capture
+    if not (res["finite"] and rollout and rollout[0].startswith("250-step")
+            and res["launches"]["extract_patches"] == 3):
+        bad.append(f"(c) {rollout}, finite {res['finite']}, launches "
+                   f"{res['launches']}")
+    launches["play"] = res["launches"]["extract_patches"]
+    print("train script: seconds " + json.dumps(
+        {k: round(v, 1) for k, v in secs.items()}) + "; patch launches "
+        f"(want {want} per rank in train and resume, 3 in play) "
+        + json.dumps(launches))
+    if bad:
+        raise AssertionError(f"train script: {bad}")
+    return {"extract_patches": sum(launches.values())}
 
 
 def _worst(got, want, tol, fields):
@@ -1551,12 +1719,13 @@ def phase_profile():
     replay = trace_window.profile_replay(graph, setup.env.device)
     print(f"profile: one profiled replay of the go2_moe_cts train graph "
           f"(captured with deterministic algorithms on, its window opened "
-          f"at once): {replay['kernels']} kernels, {replay['lost']} "
-          f"launches whose kernel the trace lacks; "
-          f"{time.perf_counter() - t:.1f} s with the warm-up and the "
+          f"after one more replay as its lead-in): {replay['kernels']} "
+          f"kernels, {replay['lost']} launches whose kernel the trace "
+          f"lacks; {time.perf_counter() - t:.1f} s with the warm-up and the "
           f"capture; the op tables follow in this process")
-    bad = []
-    for mode in ("physics",) * PROFILE_AFTER_REPLAY + ("substep", "env"):
+    bad = [] if replay["lost"] == 0 else [
+        f"the profiled replay lost {replay['lost']} launches"]
+    for mode in ("physics", "substep", "env"):
         setup = pr.build(mode, NUM_ENVS, "cuda", like=setup)
         res = pr.op_table(setup, iters=PROFILE_ITERS, top=PROFILE_TOP)
         rows = res["rows"]
@@ -1673,7 +1842,6 @@ def main():
 
     failures = []
     results = {}
-    shared = {}
     t0 = time.perf_counter()
     try:
         for m in modules:
@@ -1696,8 +1864,8 @@ def main():
                lambda: phase_train("go2_fast_flat_move", iterations=1)),
               ("train graph", phase_train_graph),
               ("bench", phase_bench),
-              ("export + eval", lambda: phase_export_eval(shared)),
-              ("play checkpoint", lambda: phase_play_checkpoint(shared)),
+              ("export + eval", phase_export_eval),
+              ("train script", phase_train_script),
               ("train ddp", phase_train_ddp),
               ("train ddp graph", phase_train_ddp_graph),
               ("engine", phase_engine),

@@ -29,7 +29,8 @@ torch.distributed.run's environment. JOB.pt (torch.save) holds {"jobs":
   and the result says whether every tensor and generator came back equal;
   with "profile" one more iteration runs with torch.profiler on from the
   rollout's end (GAE, update, metrics: every collective of it; with the
-  launches whose kernel its trace lacks).
+  launches whose kernel its trace lacks; the window opens after a lead-in,
+  `profile_rollout.open_window`).
 * "dryrun": the graft dry run (graft_entry.dryrun_multichip): the runner
   of the job's config, `init_runner_state(0)` and the compiled step
   (`mesh.make_sharded_train_step`) called twice: one iteration (on the card
@@ -50,7 +51,8 @@ torch.distributed.run's environment. JOB.pt (torch.save) holds {"jobs":
   ms of each compiled call by CUDA events), the update's
   gathers (shapes, bytes, device ms of one by CUDA events) and the NCCL
   and memcpy rows of one profiled compiled call (with the launches whose
-  kernel its trace lacks: the window opens at once); with "learn" n, `learn`
+  kernel its trace lacks; the window opens after one more compiled call as
+  its lead-in, `profile_rollout.window`); with "learn" n, `learn`
   of n iterations on the same runner (saving under "log_root" if given)
   and rank 0's logged metrics; "seconds" times each part. With "no_mesh"
   the rank runs all of it on one process's runner of the `num_envs` envs
@@ -440,9 +442,10 @@ def _time_compiled(runner, step, pairs, mesh):
     """Eager train_steps (deterministic algorithms off) and calls of the
     compiled step (its graph captured with them on) alternating on the
     runner, the update's gathers timed alone, and one compiled call under
-    torch.profiler."""
+    torch.profiler (`profile_rollout.window`, one more call as its
+    lead-in)."""
     from go2_rl_gym_tpu_torch.tools.profile_rollout import (
-        _device_us, _kernels, launches_without_kernel)
+        _device_us, _kernels, launches_without_kernel, window)
     dev = runner.device
     cuda = dev.type == "cuda"
     rs = graphs.copy_tree(step.state)
@@ -502,8 +505,11 @@ def _time_compiled(runner, step, pairs, mesh):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    _sync(dev)
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def lead_in():
+        step()
+        _sync(dev)
+    with window(acts, lead_in) as prof:
         step()
         _sync(dev)
     kernels = _kernels(prof)
@@ -573,12 +579,15 @@ def run_host_reads(job, device, mesh=None):
 def _profile_iteration(runner, rs, sync):
     """One more train iteration with torch.profiler on from the rollout's
     end (GAE, the update and the metrics: every collective of the
-    iteration, without the rollout's ~180k launches): its wall time, the
+    iteration, without the rollout's ~180k launches; the window opens at
+    the mark after a small kernel as its lead-in, `open_window`, and the
+    wall clock starts after its pad): its wall time, the
     device's busy time and launches, the NCCL kernels among them, and the
     host time of the collective calls by name, and the launches whose
     kernel the trace lacks."""
     from go2_rl_gym_tpu_torch.tools.profile_rollout import (
-        _device_us, _kernels, launches_without_kernel)
+        _device_us, _kernels, launches_without_kernel, lead_in_on,
+        open_window)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if runner.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -588,12 +597,12 @@ def _profile_iteration(runner, rs, sync):
     def mark(name):
         if name == "rollout":
             sync()
-            prof.start()
+            open_window(prof, lead_in_on(runner.device))
             t0.append(time.perf_counter())
     runner.train_step(rs, mark=mark)
     sync()
     wall_ms = (time.perf_counter() - t0[0]) * 1e3
-    prof.stop()
+    prof.stop_trace()
     kernels = _kernels(prof)
     nccl = [e for e in kernels if "nccl" in e.key.lower()]
     calls = {e.key: [e.count, e.cpu_time_total / 1e3]

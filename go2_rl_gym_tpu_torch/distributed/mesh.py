@@ -54,6 +54,7 @@ import dataclasses
 import datetime
 import gc
 import os
+import socket
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -163,6 +164,13 @@ def make_sharded_train_step(runner, mesh: Mesh, rs):
     if runner.mesh is not mesh:
         raise ValueError("the runner is not attached to this mesh")
     return runner.compiled_step(rs)
+
+
+def free_port() -> int:
+    """A TCP port of localhost that is free now."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def shutdown():

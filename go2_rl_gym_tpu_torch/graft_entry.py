@@ -15,7 +15,6 @@ multi-rank dry run of the train step (twin of __graft_entry__.py).
 from __future__ import annotations
 
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -53,12 +52,6 @@ def entry(device="cuda"):
     return forward, example_args
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def dryrun_multichip(n_devices: int, device="cuda", timeout_s: float = 600.0):
     """The full go2_moe_cts train step over `n_devices` ranks on tiny
     shapes: a 2 x 9 rough terrain with a 2 m border, 4 steps per env,
@@ -70,6 +63,7 @@ def dryrun_multichip(n_devices: int, device="cuda", timeout_s: float = 600.0):
     output); raises if a rank fails, times out or reports a non-finite
     metric."""
     from go2_rl_gym_tpu_torch.device import resolve_device
+    from go2_rl_gym_tpu_torch.distributed.mesh import free_port
     dev = resolve_device(device)
     if dev.type == "cuda" and n_devices > torch.cuda.device_count():
         raise RuntimeError(f"{n_devices} ranks need {n_devices} cards; "
@@ -85,7 +79,7 @@ def dryrun_multichip(n_devices: int, device="cuda", timeout_s: float = 600.0):
         job_path = os.path.join(tmp, "job.pt")
         out = os.path.join(tmp, "out")
         torch.save({"jobs": [job]}, job_path)
-        port = _free_port()
+        port = free_port()
         procs = [subprocess.Popen(
             [sys.executable, "-m", "go2_rl_gym_tpu_torch.distributed.check",
              "--job", job_path, "--out", out, "--backend", backend,

@@ -6,28 +6,33 @@ Counterpart of scripts/play.py of the JAX package. Two modes:
 On the card `env.step` runs as one CUDA graph (`utils/graphs.py`
 `EnvStep`, the JAX play's `jax.jit(env.step)`); the policy runs eagerly.
 
-* the committed policy (`play`): the student encoder reads the obs
-  history, the actor's mean `mu` drives `env.step`, the history is zeroed on
-  done and shifted, and the command is held at [1, 0, 0] (play.py:82-104).
-  Play-mode overrides (play.py:43-50) turn off noise, friction DR, pushes
-  and the action delay; the terrain stays the full configured grid. Prints
-  the mean reward and the share of envs done at each step, and env-steps/s
-  of the loop.
-* a checkpoint of the port (`play_checkpoint`, with --task): the task's
-  env at most 16 envs on a 5 x 5 terrain grid without curriculum, noise,
-  friction DR, pushes or action delay (play.py:43-50); the run's latest (or
-  the named) model_<it>.pt loads with `runner.load_params`; the policy is
-  exported to <run>/exported/policies/ as policy_jit.pt and policy.onnx
-  (CTS algorithms) and policy.pkl (CTS and PPO), then rolled with the
-  command held at [1, 0, 0] (PPO: the actor's mean on the obs). Recurrent
-  PPO is refused: the JAX package's play has no export for it either.
+* a checkpoint of the port (`play_checkpoint`; the default, as in the JAX
+  script: `--task` go2_moe_cts, `--steps` 250): the task's env at most 16
+  envs on a 5 x 5 terrain grid without curriculum, noise, friction DR,
+  pushes or action delay (play.py:43-50); the run's latest (or the named)
+  model_<it>.pt under `--log_root` loads with `runner.load_params`; the
+  policy is exported to <run>/exported/policies/ as policy_jit.pt and
+  policy.onnx (CTS algorithms) and policy.pkl (CTS and PPO), then rolled
+  with the command held at [1, 0, 0] (PPO: the actor's mean on the obs).
+  Recurrent PPO is refused: the JAX package's play has no export for it
+  either. The last line is a JSON object: the checkpoint, the exported
+  files, whether every obs and reward was finite, and the process's
+  kernel launches (`terrain_patches.LAUNCHES`).
+* the committed policy (`play`, with `--policy`; a bare `--policy` is
+  doc/evidence/go2_moe_cts_r5_75k.pt): the student
+  encoder reads the obs history, the actor's mean `mu` drives `env.step`,
+  the history is zeroed on done and shifted, and the command is held at
+  [1, 0, 0] (play.py:82-104). Play-mode overrides (play.py:43-50) turn off
+  noise, friction DR, pushes and the action delay; the terrain stays the
+  full configured grid (4096 envs by default). Prints the mean reward and
+  the share of envs done at each step, and env-steps/s of the loop.
 
 Usage:
-    python -m go2_rl_gym_tpu_torch.scripts.play [--num_envs 4096] [--steps 24]
-        [--policy doc/evidence/go2_moe_cts_r5_75k.pt] [--device cuda]
-    python -m go2_rl_gym_tpu_torch.scripts.play --task go2_moe_cts \
+    python -m go2_rl_gym_tpu_torch.scripts.play [--task go2_moe_cts] \
         [--experiment_name NAME] [--load_run RUN] [--checkpoint IT] \
         [--log_root logs] [--steps 250] [--device cuda]
+    python -m go2_rl_gym_tpu_torch.scripts.play --policy [P.pt] \
+        [--num_envs 4096] [--steps 250] [--device cuda]
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
 from go2_rl_gym_tpu_torch.export import exporter
 from go2_rl_gym_tpu_torch.export.importer import load_pt_policy
+from go2_rl_gym_tpu_torch.ops import terrain_patches
 from go2_rl_gym_tpu_torch.utils import graphs
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
 from go2_rl_gym_tpu_torch.utils import registry
@@ -154,7 +160,7 @@ def play_checkpoint(task: str = "go2_moe_cts", experiment_name=None,
                     device="cuda"):
     """Load a checkpoint of the port, export its policy, roll it (see the
     module docstring). Returns dict(checkpoint, exported={kind: path},
-    mean_reward=[per step], finite)."""
+    mean_reward=[per step], finite); prints its summary as a JSON line."""
     env_cfg, train_cfg = play_checkpoint_cfgs(task, num_envs)
     algo = train_cfg.runner.algorithm_class_name
     if algo != "PPO" and algo not in ALGO_TO_FAMILY:
@@ -196,15 +202,18 @@ def play_checkpoint(task: str = "go2_moe_cts", experiment_name=None,
     mean_reward = torch.stack(rews).tolist()
     print(f"{steps}-step rollout: mean reward/step "
           f"{sum(mean_reward) / steps:.4f}")
-    return dict(checkpoint=path, exported=exported, mean_reward=mean_reward,
-                finite=bool(torch.stack(finite).all()))
+    res = dict(checkpoint=path, exported=exported, mean_reward=mean_reward,
+               finite=bool(torch.stack(finite).all()))
+    print(json.dumps({"checkpoint": path, "exported": exported,
+                      "finite": res["finite"],
+                      "launches": dict(terrain_patches.LAUNCHES)}))
+    return res
 
 
-def main(argv=None):
+def get_parser():
+    """The flags; those shared with scripts/play.py have its defaults."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--policy", default=DEFAULT_POLICY,
-                   help="a .pt policy to roll (without --task)")
-    p.add_argument("--task", default=None,
+    p.add_argument("--task", default="go2_moe_cts",
                    help="roll and export a checkpoint of this task's runs")
     p.add_argument("--experiment_name", default=None,
                    help="the experiment directory under --log_root (the "
@@ -212,21 +221,26 @@ def main(argv=None):
     p.add_argument("--load_run", default=-1)
     p.add_argument("--checkpoint", type=int, default=-1)
     p.add_argument("--log_root", default=os.path.join(ROOT, "logs"))
+    p.add_argument("--steps", type=int, default=250)
+    p.add_argument("--policy", nargs="?", const=DEFAULT_POLICY, default=None,
+                   help="roll this .pt policy instead of a checkpoint "
+                        "(bare: the committed one)")
     p.add_argument("--num_envs", type=int, default=None,
-                   help="4096 for --policy; at most 16 (the default) for "
-                        "--task")
-    p.add_argument("--steps", type=int, default=None,
-                   help="24 for --policy, 250 for --task")
+                   help="at most 16 (the default) for a checkpoint; 4096 "
+                        "for --policy")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
-    args = p.parse_args(argv)
-    if args.task:
+    return p
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    if args.policy is None:
         return play_checkpoint(
             args.task, args.experiment_name, args.load_run, args.checkpoint,
-            args.log_root, args.num_envs or 16,
-            250 if args.steps is None else args.steps, args.seed, args.device)
-    res = play(args.policy, args.num_envs or 4096,
-               24 if args.steps is None else args.steps, args.seed,
+            args.log_root, args.num_envs or 16, args.steps, args.seed,
+            args.device)
+    res = play(args.policy, args.num_envs or 4096, args.steps, args.seed,
                args.device)
     for i, (r, d) in enumerate(zip(res["mean_reward"], res["done_share"])):
         print(f"step {i:3d}  mean reward {r:+.5f}  done share {d:.4f}")

@@ -15,16 +15,41 @@ the policy every N iterations and scores it in MuJoCo in the background
 (CTS tasks; `train/eval_hook.py`), logging `Eval/*`.
 
 Data-parallel over W ranks, one process per card (NCCL; gloo with
-`--device cpu`), each stepping num_envs / W of the envs (scripts/train.py:
-43-47, 85-91 of the JAX package): launch the same command under
-torch.distributed.run. Rank r runs on cuda:<LOCAL_RANK>; only rank 0 logs,
-prints and writes checkpoints. The script refuses, rather than runs on fewer
-ranks or on the CPU, when W does not divide num_envs, `--num_devices`
-differs from W, or a rank has no card.
+`--device cpu`), each stepping num_envs / W of the envs, as the JAX script
+shards its envs over a mesh of devices (scripts/train.py:43-47, 98-104 of
+the JAX package). Who trains (`own_ranks`):
+
+* under a launcher (torch.distributed.run, WORLD_SIZE set) or with
+  `--multihost`, this process is one rank of the launcher's world, rank r
+  on cuda:<LOCAL_RANK>; `--num_devices` must equal the world;
+* otherwise W is `--num_devices` when given, else every visible card when
+  `--device` is cuda and more than one is visible: with W > 1 the script
+  becomes `python -m torch.distributed.run --standalone --nproc_per_node
+  W` of itself with the same arguments (`launch`), which starts the W
+  ranks, passes Ctrl-C and SIGTERM on to them and exits non-zero when one
+  fails; `--num_devices 1` trains in this process on a mesh of one rank
+  (the JAX script's `attach_mesh(n_devices=1)`);
+* otherwise one process trains, without a mesh.
+
+Only rank 0 logs, prints and writes checkpoints. The script refuses, rather
+than runs on fewer ranks or on the CPU, when W does not divide num_envs,
+`--num_devices` differs from a launcher's world, or a rank has no card.
+
+`--profile_dir` traces iterations 10-12 with torch.profiler, as the JAX
+script traces them with jax.profiler (scripts/train.py:113-118): the
+window opens after a small kernel as its lead-in and a pad
+(`tools/profile_rollout.py` `window`), the three iterations are one
+range `learn iterations 10-12`, and each rank writes its trace (rank 0
+`trace.json`, rank r `trace_rank<r>.json`) and prints its kernel launches
+and the launches whose kernel the trace lacks (`lost_launches`).
+
+Each rank ends by printing its launches of the hand-written kernels
+(`terrain_patches.LAUNCHES`) as `launches: {"rank": r, ...}`.
 
 Usage:
     python -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \
-        --num_envs 4096 --max_iterations 150000 [--resume] [--device cuda]
+        --num_envs 4096 --max_iterations 150000 [--resume] [--device cuda] \
+        [--num_devices W] [--profile_dir DIR]
     python -m torch.distributed.run --nproc_per_node 4 \
         -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \
         --num_envs 4096 [--num_devices 4]
@@ -32,7 +57,9 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
 
 import torch
 
@@ -71,30 +98,106 @@ def get_args(argv=None):
                    help="initialise torch.distributed from the launcher's "
                         "environment (implied under torch.distributed.run)")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="shard the envs over this many ranks; must equal "
-                        "the launcher's world size")
+                   help="shard the envs over this many ranks (default: "
+                        "every card when more than one is visible); under "
+                        "a launcher it must equal the launcher's world size")
     return p.parse_args(argv)
+
+
+# iterations before the traced ones, and the traced ones, of --profile_dir
+PROFILE_START = 10
+PROFILE_ITERS = 3
+
+
+def own_ranks(args) -> int:
+    """How many ranks this command starts itself (see the module
+    docstring): 0 under a launcher or with --multihost; else
+    `--num_devices` when given; else every visible card when `--device` is
+    cuda (no index) and more than one is visible; else 0."""
+    if "WORLD_SIZE" in os.environ or args.multihost:
+        return 0
+    if args.num_devices:
+        return args.num_devices
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and dev.index is None \
+            and torch.cuda.device_count() > 1:
+        return torch.cuda.device_count()
+    return 0
+
+
+def launch(args, argv, num_envs: int):
+    """Replace this process with torch.distributed.run starting `args`'s W
+    ranks of this script with the arguments `argv`, after the checks each
+    rank would make."""
+    world = own_ranks(args)
+    if num_envs % world:
+        raise ValueError(f"{world} ranks do not divide num_envs={num_envs}")
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and world > torch.cuda.device_count():
+        raise RuntimeError(f"--num_devices {world}, but "
+                           f"{torch.cuda.device_count()} cards are visible")
+    print(f"scripts.train: starting {world} ranks on {dev.type}", flush=True)
+    os.execv(sys.executable, [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", str(world), "-m",
+        "go2_rl_gym_tpu_torch.scripts.train", *argv])
+
+
+def profile(runner, rs, profile_dir, rank: int):
+    """PROFILE_ITERS iterations of `learn` under torch.profiler (see the
+    module docstring); returns the state after them."""
+    from go2_rl_gym_tpu_torch.tools import profile_rollout as pr
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if runner.device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    first = runner.current_iteration
+    with pr.window(acts, pr.lead_in_on(runner.device)) as prof:
+        with torch.profiler.record_function(
+                f"learn iterations {first}-{first + PROFILE_ITERS - 1}"):
+            rs = runner.learn(rs, PROFILE_ITERS)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace_rank{rank}.json" if rank
+                        else "trace.json")
+    prof.export_chrome_trace(path)
+    print("profile: " + json.dumps({
+        "rank": rank, "trace": path,
+        "iterations": [first, runner.current_iteration - 1],
+        "kernel_launches": sum(e.count for e in pr._kernels(prof)),
+        "lost_launches": len(pr.launches_without_kernel(prof.events()))}),
+        flush=True)
+    return rs
 
 
 def main(argv=None):
     args = get_args(argv)
+    from go2_rl_gym_tpu_torch.ops import terrain_patches
     from go2_rl_gym_tpu_torch.utils import registry
     from go2_rl_gym_tpu_torch.utils.helpers import (get_load_path,
                                                     update_cfg_from_args)
 
     env_cfg, train_cfg = registry.get_cfgs(args.task)
     update_cfg_from_args(env_cfg, train_cfg, args)
+    world = own_ranks(args)
+    if world > 1:
+        launch(args, sys.argv[1:] if argv is None else list(argv),
+               env_cfg.env.num_envs)
     device, mesh = args.device, None
-    if args.multihost or args.num_devices or "WORLD_SIZE" in os.environ:
+    if world or args.multihost or "WORLD_SIZE" in os.environ:
         # before any CUDA work: make_env uploads the terrain
         from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
-        world = int(os.environ.get("WORLD_SIZE", 0))
-        if args.num_devices and args.num_devices != world:
-            raise RuntimeError(
-                f"--num_devices {args.num_devices}, but the launcher started "
-                f"{world or 'no'} ranks: launch with python -m "
-                f"torch.distributed.run --nproc_per_node {args.num_devices}")
-        device = mesh_lib.initialize_multihost(device=args.device)
+        if world:       # --num_devices 1: a mesh of this process alone
+            device = mesh_lib.initialize_multihost(
+                f"localhost:{mesh_lib.free_port()}", 1, 0,
+                device=args.device)
+        else:
+            launched = int(os.environ.get("WORLD_SIZE", 0))
+            if args.num_devices and args.num_devices != launched:
+                raise RuntimeError(
+                    f"--num_devices {args.num_devices}, but the launcher "
+                    f"started {launched or 'no'} ranks: launch with python "
+                    f"-m torch.distributed.run --nproc_per_node "
+                    f"{args.num_devices}, or without a launcher")
+            device = mesh_lib.initialize_multihost(device=args.device)
         mesh = mesh_lib.make_mesh(env_cfg.env.num_envs, device)
         print(f"data-parallel over {mesh.world} ranks: rank {mesh.rank} on "
               f"{device}, envs [{mesh.env_slice.start}, "
@@ -118,18 +221,16 @@ def main(argv=None):
         rs = runner.load(rs, path)
 
     iters = train_cfg.runner.max_iterations
+    rank = mesh.rank if mesh else 0
     if args.profile_dir:
-        rs = runner.learn(rs, 10)
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if runner.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            rs = runner.learn(rs, 3)
-        os.makedirs(args.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile_dir,
-                                              "trace.json"))
-        iters -= 13
-    return runner, runner.learn(rs, iters)
+        rs = runner.learn(rs, PROFILE_START)
+        rs = profile(runner, rs, args.profile_dir, rank)
+        iters -= PROFILE_START + PROFILE_ITERS
+    rs = runner.learn(rs, iters)
+    print("launches: " + json.dumps({"rank": rank,
+                                     **terrain_patches.LAUNCHES}),
+          flush=True)
+    return runner, rs
 
 
 if __name__ == "__main__":

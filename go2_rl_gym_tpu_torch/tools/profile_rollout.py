@@ -13,11 +13,11 @@ the flagship go2_moe_cts on the full rough terrain by default; `go2` and
    extraction + 4 substeps), and the whole env.step;
 2. times `--steps` rollout steps on the host clock without the profiler
    (`rollout_step_ms`);
-3. profiles `--steps` more rollout steps with torch.profiler: device busy
-   time against wall time in that window (`device_idle_share_profiled`;
-   the profiler's host overhead stretches the wall time), kernel launches
-   per step, the launches whose kernel the trace lacks
-   (`lost_launches`: its window opens at once, so a nonzero count means
+3. profiles `--steps` more rollout steps with torch.profiler (`window`,
+   after one more rollout as the lead-in): device busy time against wall
+   time in that window (`device_idle_share_profiled`; the profiler's host
+   overhead stretches the wall time), kernel launches per step, the
+   launches whose kernel the trace lacks (`lost_launches`: nonzero means
    the launch and busy figures are short), and the kernels that take the
    most device time.
 
@@ -36,9 +36,11 @@ untimed iteration):
    update's launches and its device busy share (busy time over the
    update's wall time).
 
-Both traces of 2 and 3 open their windows at once; `lost_launches` counts,
-for each, the launches whose kernel the trace lacks (nonzero: its launch
-and busy figures are short).
+The window of 2 opens after one more iteration as its lead-in (`window`),
+that of 3 at the GAE mark after a small kernel as its lead-in
+(`open_window`, `lead_in_on`); the wall clocks start after the pad.
+`lost_launches` counts, for each, the launches whose kernel the trace
+lacks (nonzero: its launch and busy figures are short).
 
 `--ops` and `--decompose` build what the JAX tools build (`build`): Go2Cfg()
 at `--num_envs` envs (default: the BENCH_NUM_ENVS variable, else 4096),
@@ -202,14 +204,34 @@ def window(acts, lead_in: Callable[[], None]):
     `launches_without_kernel`. Yields the profiler; its events are read
     after the `with`."""
     prof = torch.profiler.profile(activities=acts)
-    prof.prepare_trace()
-    lead_in()
-    prof.start_trace()
+    open_window(prof, lead_in)
     try:
-        time.sleep(WINDOW_PAD_S)
         yield prof
     finally:
         prof.stop_trace()
+
+
+def open_window(prof, lead_in: Callable[[], None]):
+    """Open the trace window of `prof`, a torch.profiler.profile not yet
+    started, as `window` does: the device tracing on (`prepare_trace`),
+    `lead_in()`, the window opened, WINDOW_PAD_S of sleep. A window that
+    starts inside a call, at a phase mark, opens here with `lead_in_on`;
+    it ends with `prof.stop_trace()`. Wall clocks start after it
+    returns."""
+    prof.prepare_trace()
+    lead_in()
+    prof.start_trace()
+    time.sleep(WINDOW_PAD_S)
+
+
+def lead_in_on(device) -> Callable[[], None]:
+    """The lead-in of a window that opens inside a call (at a phase mark),
+    where the call itself cannot run again: one small kernel on `device`,
+    then a synchronize."""
+    def lead_in():
+        torch.ones(1, device=device).add_(1)
+        _sync(device)
+    return lead_in
 
 
 def launches_without_kernel(events):
@@ -443,6 +465,17 @@ def op_rows(events, names, device_time):
             sum(k.time_range.elapsed_us() for k in device), len(device))
 
 
+def ranked(rows, iters):
+    """`op_rows`'s rows as the table's, heaviest first: ms, percent of the
+    total, calls and launches per call of `iters` calls."""
+    total = sum(r[0] for r in rows.values())
+    return [dict(ms=us / iters / 1e3, pct=100 * us / total if total else 0.0,
+                 name=name, source=where, calls=n / iters,
+                 launches=k / iters)
+            for (name, where), (us, n, k) in sorted(
+                rows.items(), key=lambda kv: -kv[1][0])]
+
+
 def op_table(setup: Setup, iters=None, top=40):
     """The op table of `setup`'s mode (see the module docstring): one
     warm-up call as the lead-in of the profiler's `window`, then `iters`
@@ -483,11 +516,7 @@ def op_table(setup: Setup, iters=None, top=40):
     reduce_s = time.perf_counter() - t0
     total = sum(r[0] for r in rows.values())
     with_src = sum(r[0] for (_, where), r in rows.items() if where)
-    out = [dict(ms=us / iters / 1e3, pct=100 * us / total if total else 0.0,
-                name=name, source=where, calls=n / iters,
-                launches=k / iters)
-           for (name, where), (us, n, k) in sorted(
-               rows.items(), key=lambda kv: -kv[1][0])]
+    out = ranked(rows, iters)
     kind = "device" if on_card else "host"
     res = dict(
         mode=setup.mode, time=kind, num_envs=setup.env.num_envs,
@@ -555,29 +584,34 @@ def profile_train(runner, rs, top, task):
     parts = {f"{name}_event_ms": events[i].elapsed_time(events[i + 1])
              for i, name in enumerate(("rollout", "gae", "update"))}
 
-    # 2. the whole iteration under the profiler
-    tp.LAUNCHES["extract_patches"] = 0
-    with torch.profiler.profile(activities=acts) as prof:
+    # 2. the whole iteration under the profiler, its window opened after
+    # one more iteration as the lead-in
+    def lead_in():
+        nonlocal rs
+        rs, _ = runner.train_step(rs)
         torch.cuda.synchronize()
+    with window(acts, lead_in) as prof:
+        tp.LAUNCHES["extract_patches"] = 0
         t0 = time.perf_counter()
         rs, _ = runner.train_step(rs)
         torch.cuda.synchronize()
         wall = {"iteration": (time.perf_counter() - t0) * 1e3}
-    patch_launches = tp.LAUNCHES["extract_patches"]
+        patch_launches = tp.LAUNCHES["extract_patches"]
     lost = {"iteration": len(launches_without_kernel(prof.events()))}
 
-    # 3. the update alone under the profiler, in one more iteration (the
-    # profiler starts and stops at the phase marks)
+    # 3. the update alone under the profiler, in one more iteration: its
+    # window opens at the GAE mark (`open_window`) and closes at the
+    # update's
     prof_up = torch.profiler.profile(activities=acts)
     clock = {}
 
     def mark(name):
         torch.cuda.synchronize()
-        clock[name] = time.perf_counter()
         if name == "gae":
-            prof_up.start()
-        elif name == "update":
-            prof_up.stop()
+            open_window(prof_up, lead_in_on(runner.device))
+        clock[name] = time.perf_counter()
+        if name == "update":
+            prof_up.stop_trace()
     runner.train_step(rs, mark=mark)
     wall["update"] = (clock["update"] - clock["gae"]) * 1e3
     lost["update"] = len(launches_without_kernel(prof_up.events()))
@@ -685,9 +719,13 @@ def main(argv=None):
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
-        tp.LAUNCHES["extract_patches"] = 0
-        with torch.profiler.profile(activities=acts) as prof:
+
+        def lead_in():
+            nonlocal rs
+            rs, _ = runner.rollout(rs)
             torch.cuda.synchronize()
+        with window(acts, lead_in) as prof:
+            tp.LAUNCHES["extract_patches"] = 0
             t0 = time.perf_counter()
             rs, _ = runner.rollout(rs)
             torch.cuda.synchronize()

@@ -6,8 +6,8 @@ zero PD targets) and a go2_moe_cts runner on the same env, captures its
 train iteration as a CUDA graph with deterministic algorithms on
 (`capture`: the graph after whose profiled replays the op tables lost the
 patch kernel), and then, for each of REPLAYS rounds, profiles one replay
-of that graph (`profile_replay`) and traces WINDOWS windows of 3 physics
-steps each in two ways:
+of that graph (`profile_replay`, after one more as its lead-in) and
+traces WINDOWS windows of 3 physics steps each in two ways:
 
 - "at once": torch.profiler.profile's own window, opened with the tracing;
 - "lead-in": `profile_rollout.window`, opened after one physics step made
@@ -66,10 +66,13 @@ def capture(setup):
 
 
 def profile_replay(step, device):
-    """One call of `step` under torch.profiler, its window opened at once:
-    {"kernels": the kernels in the trace, "lost": the launches in it whose
-    kernel it lacks}."""
-    with torch.profiler.profile(activities=_activities(device)) as prof:
+    """One call of `step` under torch.profiler (`profile_rollout.window`,
+    one more call as its lead-in): {"kernels": the kernels in the trace,
+    "lost": the launches in it whose kernel it lacks}."""
+    def lead_in():
+        step()
+        pr._sync(device)
+    with pr.window(_activities(device), lead_in) as prof:
         step()
         pr._sync(device)
     return {"kernels": sum(e.count for e in pr._kernels(prof)),

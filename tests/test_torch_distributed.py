@@ -469,16 +469,44 @@ def test_train_script_under_torchrun(tmp_path):
     assert ck["runner_state"]["obs"].shape[0] == N
 
 
+def test_train_script_without_a_launcher_starts_its_ranks(tmp_path):
+    """python -m go2_rl_gym_tpu_torch.scripts.train --num_devices 2
+    --device cpu with no launcher starts two gloo ranks of itself, which
+    give what they give under torch.distributed.run."""
+    cmd = [sys.executable, "-m", "go2_rl_gym_tpu_torch.scripts.train",
+           "--task", "go2_moe_cts", "--num_envs", str(N), "--device", "cpu",
+           "--terrain", "plane", "--max_iterations", "1", "--num_devices",
+           str(WORLD), "--log_root", str(tmp_path)]
+    env = {k: v for k, v in _subprocess_env().items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    [(rc, out)] = _wait([subprocess.Popen(
+        cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)])
+    assert rc == 0, out[-4000:]
+    assert f"scripts.train: starting {WORLD} ranks on cpu" in out
+    assert f"data-parallel over {WORLD} ranks: rank 1 on cpu, envs [4, 8)" \
+        in out
+    runs = os.listdir(tmp_path / "go2_moe_cts")
+    assert len(runs) == 1, runs
+    run_dir = tmp_path / "go2_moe_cts" / runs[0]
+    assert {"model_0.pt", "model_1.pt"} <= set(os.listdir(run_dir))
+    ck = torch.load(run_dir / "model_1.pt", weights_only=True)
+    assert ck["world"] == WORLD and ck["iteration"] == 1
+    assert ck["runner_state"]["obs"].shape[0] == N
+
+
 def test_train_script_refuses_rather_than_degrades(monkeypatch):
-    """--num_devices without a launcher, a world that does not divide the
-    envs, and a rank without a card each raise before any training."""
+    """With no launcher, ranks that do not divide the envs; a
+    --num_devices that the launcher did not start, a world that does not
+    divide the envs, and a rank without a card each raise before any
+    training."""
     for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
               "MASTER_PORT"):
         monkeypatch.delenv(k, raising=False)
     base = ["--task", "go2_moe_cts", "--num_envs", str(N), "--terrain",
             "plane", "--device", "cpu"]
-    with pytest.raises(RuntimeError, match="torch.distributed.run"):
-        train_script.main(base + ["--num_devices", "2"])
+    with pytest.raises(ValueError, match="3 ranks do not divide"):
+        train_script.main(base + ["--num_devices", "3"])
     with pytest.raises(RuntimeError, match="MASTER_ADDR"):
         train_script.main(base + ["--multihost"])
     monkeypatch.setenv("RANK", "0")

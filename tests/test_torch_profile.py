@@ -13,16 +13,20 @@ of the JAX package's tools/profile_physics.py and tools/bench_decompose.py.
   5e-3, rewards rtol 1e-2 + atol 1e-6, done exactly).
 * `build("train")` has the JAX tools' configs and starts the envs at
   random episode lengths.
-* The CLI on the CPU: `--ops physics` ranks self host time with source
-  lines under sim/, `--decompose physics env` prints the JAX tool's lines;
-  without `--device`, a machine with no card raises.
-* The device-time reduction on made-up events: each kernel counts once, at
-  the op that launched it, and a backward op takes its forward op's line.
+* The CLI on the CPU: `--ops physics` tabulates self host time with
+  source lines under sim/, the same ops per call in every table,
+  `--decompose physics env` prints the JAX tool's lines; without
+  `--device`, a machine with no card raises.
+* The device-time reduction and the ranking on made-up events: each kernel
+  counts once, at the op that launched it, a backward op takes its forward
+  op's line, rows rank by their time.
+* Every trace window opens after a lead-in (`window`, `open_window`).
 """
 import copy
 import dataclasses
 import inspect
 import json
+import time
 import types
 
 import jax
@@ -156,7 +160,14 @@ def _last_json(text):
     return json.loads(text.strip().splitlines()[-1])
 
 
-def test_ops_physics_on_the_cpu(capsys):
+def test_ops_physics_on_the_cpu(capsys, physics_setup):
+    """The CLI's table of host time, and what a loaded host cannot move:
+    the ops each call runs, by op and source line, and the launches per
+    call are the same in 3 full tables. Host milliseconds under load are
+    not held here (a preemption of a few ms inside one op outweighs the
+    gap between rows): the ranking by ms is held on made-up events with
+    fixed durations (`test_op_table_ranks_rows_by_their_time`), the card's
+    by chip_smoke.py's phase profile."""
     argv = ["--ops", "physics", "--device", "cpu", "--num_envs", "16",
             "--iters", "1", "--top", "10"]
     res = pr.main(argv)
@@ -175,22 +186,52 @@ def test_ops_physics_on_the_cpu(capsys):
     rows = res["rows"]
     assert [r["ms"] for r in rows] == sorted((r["ms"] for r in rows),
                                              reverse=True)
-    # the ranking by the median of 3 tables: one preemption of the host
-    # inside some op of one call (a few ms, where the 5th row reads ~1 ms)
-    # does not move it
-    runs = [rows] + [pr.main(argv)["rows"] for _ in range(2)]
+
+    # 3 full tables of the same call: every row's calls per call, the
+    # launches per call and the patch launches are equal
+    tables = [pr.op_table(physics_setup, iters=1, top=0) for _ in range(3)]
     capsys.readouterr()
-    ms = {}
-    for run in runs:
-        for r in run:
-            ms.setdefault((r["name"], r["source"]), []).append(r["ms"])
-    median = {k: sorted(v + [0.0] * (3 - len(v)))[1] for k, v in ms.items()}
-    top = sorted(median, key=lambda k: -median[k])[:5]
+    calls = [{(r["name"], r["source"]): r["calls"] for r in t["rows"]}
+             for t in tables]
+    assert calls[0] == calls[1] == calls[2] and len(calls[0]) > 100
+    assert {t["launches_per_call"] for t in tables} == {0.0}
+    assert {t["patch_kernel_launches"] for t in tables} == {0}
+    for t in tables:
+        ms = [r["ms"] for r in t["rows"]]
+        assert ms == sorted(ms, reverse=True)
+    # the CLI's rows are rows of the full table, with its call counts
+    assert all(calls[0][r["name"], r["source"]] == r["calls"] for r in rows)
+    # the ops run most often sit at source lines of sim/
+    top = sorted(calls[0], key=lambda k: -calls[0][k])[:5]
     for name, source in top:
-        assert source.startswith("sim/"), (name, source, ms[name, source])
+        assert source.startswith("sim/"), (name, source)
         path, line = source.rsplit(":", 1)
         assert path.endswith(".py") and int(line) > 0
-        assert name.startswith("aten::") and median[name, source] > 0
+        assert name.startswith("aten::")
+
+
+def test_op_table_ranks_rows_by_their_time():
+    """The table's ranking on made-up events with fixed host times: rows
+    by (op, source) heaviest first, each with its ms and percent per call
+    and its calls per call."""
+    src = _event("sim/tmath.py:25", annotation=True)
+    src2 = _event("sim/tengine.py:412", annotation=True)
+    ops = [_event("aten::mul", src, us=3.0), _event("aten::mul", src, us=5.0),
+           _event("aten::cat", src, us=2.0), _event("aten::sum", src2, us=12.0),
+           _event("aten::add", us=0.5), _event("aten::mul", src2, us=1.0)]
+    rows, _, _ = pr.op_rows([src, src2] + ops,
+                            {"sim/tmath.py:25", "sim/tengine.py:412"}, False)
+    table = pr.ranked(rows, iters=2)
+    assert [(r["name"], r["source"]) for r in table] == [
+        ("aten::sum", "sim/tengine.py:412"), ("aten::mul", "sim/tmath.py:25"),
+        ("aten::cat", "sim/tmath.py:25"), ("aten::mul", "sim/tengine.py:412"),
+        ("aten::add", "")]
+    assert [r["ms"] for r in table] == [0.006, 0.004, 0.001, 0.0005, 0.00025]
+    assert [r["calls"] for r in table] == [0.5, 1.0, 0.5, 0.5, 0.5]
+    np.testing.assert_allclose([r["pct"] for r in table],
+                               [100 * us / 23.5 for us in
+                                (12.0, 8.0, 2.0, 1.0, 0.5)])
+    assert pr.ranked({}, iters=1) == []
 
 
 def test_decompose_on_the_cpu(capsys):
@@ -352,3 +393,60 @@ def test_trace_window_capture_and_profiled_replay_on_the_cpu(physics_setup):
                                     lambda: None)
     assert (prof["launches"], prof["lost_launches"]) == (0, 0)
     assert prof["wall_ms"] > 0
+
+
+class _HostEvent:
+    """torch.cuda.Event's interface on the host clock, for the card-only
+    tool on the CPU."""
+
+    def __init__(self, **kwargs):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def test_windows_open_after_a_lead_in(physics_setup, monkeypatch, capsys):
+    """Every trace window of `profile_rollout --train` (the iteration and
+    the update) and of the distributed check worker (its profiled compiled
+    call and its profiled iteration) opens through `open_window`: the
+    tracing on, a lead-in, the window, the pad. Counted by a patched
+    `open_window`; on the CPU no trace holds a kernel or loses one."""
+    from go2_rl_gym_tpu_torch.distributed import check
+    from go2_rl_gym_tpu_torch.utils import graphs
+
+    opened = []
+    open_window = pr.open_window
+
+    def counted(prof, lead_in):
+        opened.append(prof)
+        open_window(prof, lead_in)
+    monkeypatch.setattr(pr, "open_window", counted)
+    # the --train mode is the card's: its clock and names on the host
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *args: "cpu")
+
+    tc = copy.deepcopy(physics_setup.tc)
+    tc.runner.num_steps_per_env = 2
+    tc.algorithm.num_learning_epochs = tc.algorithm.num_mini_batches = 1
+    train = pr.build("train", like=physics_setup._replace(tc=tc))
+    pr.profile_train(train.runner, train.rs, 3, "go2_moe_cts")
+    res = _last_json(capsys.readouterr().out)
+    assert len(opened) == 2
+    assert res["lost_launches"] == {"iteration": 0, "update": 0}
+    assert res["kernel_launches"] == {"iteration": 0, "update": 0}
+    assert res["profiled_wall_ms"]["update"] > 0
+
+    step = train.runner.compiled_step(graphs.copy_tree(train.rs))
+    timed = check._time_compiled(train.runner, step, 1, None)
+    assert len(opened) == 3
+    assert (timed["profiled"]["launches"],
+            timed["profiled"]["lost_launches"]) == (0, 0)
+    prof = check._profile_iteration(
+        train.runner, graphs.copy_tree(step.state), lambda: None)
+    assert len(opened) == 4
+    assert (prof["launches"], prof["lost_launches"]) == (0, 0)

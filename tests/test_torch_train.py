@@ -336,5 +336,8 @@ def test_script_rejects_what_is_not_ported(tmp_path, monkeypatch):
     assert runner.evaluator.scenes == ["flat", "stairs", "cross_slope"]
     assert os.listdir(os.path.join(runner.log_dir, "jit_models")) == [
         "policy_jit_0.pt"]
+    # under a launcher of one rank
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
     with pytest.raises(RuntimeError, match="--num_devices 2"):
         train_script.main(["--num_devices", "2", "--device", "cpu"])
