@@ -548,7 +548,7 @@ def phase_train(task="go2_moe_cts", iterations=2):
     4096 envs: the first untimed, the others timed (see the module
     docstring). Returns the launch counts of the last iteration."""
     import torch
-    from go2_rl_gym_tpu_torch.utils import registry
+    from go2_rl_gym_tpu_torch.utils import registry, spans
 
     env_cfg, tc = registry.get_cfgs(task)
     env = registry.make_env(task, env_cfg, num_envs=NUM_ENVS,
@@ -566,14 +566,18 @@ def phase_train(task="go2_moe_cts", iterations=2):
     for _ in range(iterations):
         timings, clock = {}, []
 
-        def mark(phase):
+        def mark(phase, kind):
+            if kind != spans.END or phase not in ("rollout", "gae",
+                                                  "update"):
+                return
             torch.cuda.synchronize()
             clock.append(time.perf_counter())
             timings[phase] = (clock[-1] - clock[-2]) * 1e3
         torch.cuda.synchronize()
         reset_launch_counts()
         clock.append(time.perf_counter())
-        rs, m = runner.train_step(rs, mark=mark)
+        with spans.recording(runner.device), spans.listen(mark):
+            rs, m = runner.train_step(rs)
         torch.cuda.synchronize()
         dt = time.perf_counter() - clock[0]
         runs.append((dt, timings, launch_counts(), m))

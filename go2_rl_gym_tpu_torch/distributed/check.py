@@ -87,7 +87,7 @@ from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
 from go2_rl_gym_tpu_torch.ops import terrain_patches
 from go2_rl_gym_tpu_torch.tools import card_check
 from go2_rl_gym_tpu_torch.train.runner import _pack, _unpack
-from go2_rl_gym_tpu_torch.utils import graphs, registry
+from go2_rl_gym_tpu_torch.utils import graphs, registry, spans
 
 
 def job_cfgs(job):
@@ -580,7 +580,8 @@ def _profile_iteration(runner, rs, sync):
     """One more train iteration with torch.profiler on from the rollout's
     end (GAE, the update and the metrics: every collective of the
     iteration, without the rollout's ~180k launches; the window opens at
-    the mark after a small kernel as its lead-in, `open_window`, and the
+    the end of the `rollout` span, which a span listener sees, after a
+    small kernel as its lead-in, `open_window`, and the
     wall clock starts after its pad): its wall time, the
     device's busy time and launches, the NCCL kernels among them, and the
     host time of the collective calls by name, and the launches whose
@@ -594,12 +595,13 @@ def _profile_iteration(runner, rs, sync):
     prof = torch.profiler.profile(activities=acts)
     t0 = []
 
-    def mark(name):
-        if name == "rollout":
+    def mark(name, kind):
+        if (name, kind) == ("rollout", spans.END):
             sync()
             open_window(prof, lead_in_on(runner.device))
             t0.append(time.perf_counter())
-    runner.train_step(rs, mark=mark)
+    with spans.recording(runner.device), spans.listen(mark):
+        runner.train_step(rs)
     sync()
     wall_ms = (time.perf_counter() - t0[0]) * 1e3
     prof.stop_trace()

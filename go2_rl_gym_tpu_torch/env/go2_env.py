@@ -35,6 +35,7 @@ from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
 from go2_rl_gym_tpu_torch.sim import engine, tengine
 from go2_rl_gym_tpu_torch.sim.model import RobotModel, go2_model
 from go2_rl_gym_tpu_torch.terrain import generator
+from go2_rl_gym_tpu_torch.utils import spans
 
 
 class EnvState(NamedTuple):
@@ -792,9 +793,10 @@ class Go2Env:
         strength = (state.motor_strength
                     if cfg.domain_rand.randomize_motor_strength
                     else torch.ones((N, 12), device=dev))
-        sim, last_out, torques, patch_data = self.physics_step(
-            state.dyn, state.sim, targets, kp, kd, strength,
-            state.motor_offset)
+        with spans.span("physics"):
+            sim, last_out, torques, patch_data = self.physics_step(
+                state.dyn, state.sim, targets, kp, kd, strength,
+                state.motor_offset)
 
         # ---- post-physics (legged_robot.py:102-142) ----
         episode_length = state.episode_length + 1

@@ -43,13 +43,24 @@ range `learn iterations 10-12`, and each rank writes its trace (rank 0
 `trace.json`, rank r `trace_rank<r>.json`) and prints its kernel launches
 and the launches whose kernel the trace lacks (`lost_launches`).
 
+`--spans` turns the span recorder on (utils/spans.py) before the first
+capture: each iteration's phases are stamped on the device's own clock,
+inside the CUDA graph, and `learn` logs, for each logged iteration,
+`Perf/phase/<span>_ms` next to the other `Perf/*` scalars (`train_step`,
+`rollout`, `act`, `env` without its physics, `physics`, `gae`, `update`,
+`uncovered`: the iteration less those phases, and `learn.launch`: host ms
+in the call that launches the graph); with `--profile_dir` the trace then
+holds the `go2.*` host ranges (`go2.learn.launch` round each graph launch)
+and the stamps as kernels `go2_span_stamp`. Under a mesh each rank records
+its own spans and rank 0 logs them.
+
 Each rank ends by printing its launches of the hand-written kernels
 (`terrain_patches.LAUNCHES`) as `launches: {"rank": r, ...}`.
 
 Usage:
     python -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \
         --num_envs 4096 --max_iterations 150000 [--resume] [--device cuda] \
-        [--num_devices W] [--profile_dir DIR]
+        [--num_devices W] [--profile_dir DIR] [--spans]
     python -m torch.distributed.run --nproc_per_node 4 \
         -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \
         --num_envs 4096 [--num_devices 4]
@@ -57,6 +68,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -92,6 +104,9 @@ def get_args(argv=None):
                         "metric, state or parameter (slow; for debugging)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of iterations 10-12")
+    p.add_argument("--spans", action="store_true",
+                   help="stamp each iteration's phases on the device and "
+                        "log them as Perf/phase/<span>_ms")
     p.add_argument("--eval_interval", type=int, default=0,
                    help="run async MuJoCo sim2sim eval every N iterations")
     p.add_argument("--multihost", action="store_true",
@@ -171,7 +186,7 @@ def profile(runner, rs, profile_dir, rank: int):
 def main(argv=None):
     args = get_args(argv)
     from go2_rl_gym_tpu_torch.ops import terrain_patches
-    from go2_rl_gym_tpu_torch.utils import registry
+    from go2_rl_gym_tpu_torch.utils import registry, spans
     from go2_rl_gym_tpu_torch.utils.helpers import (get_load_path,
                                                     update_cfg_from_args)
 
@@ -222,11 +237,13 @@ def main(argv=None):
 
     iters = train_cfg.runner.max_iterations
     rank = mesh.rank if mesh else 0
-    if args.profile_dir:
-        rs = runner.learn(rs, PROFILE_START)
-        rs = profile(runner, rs, args.profile_dir, rank)
-        iters -= PROFILE_START + PROFILE_ITERS
-    rs = runner.learn(rs, iters)
+    with (spans.recording(runner.device) if args.spans
+          else contextlib.nullcontext()):
+        if args.profile_dir:
+            rs = runner.learn(rs, PROFILE_START)
+            rs = profile(runner, rs, args.profile_dir, rank)
+            iters -= PROFILE_START + PROFILE_ITERS
+        rs = runner.learn(rs, iters)
     print("launches: " + json.dumps({"rank": rank,
                                      **terrain_patches.LAUNCHES}),
           flush=True)

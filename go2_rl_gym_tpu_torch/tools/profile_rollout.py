@@ -29,7 +29,9 @@ With `--train`, it splits whole train iterations instead (after one
 untimed iteration):
 
 1. one iteration's rollout / GAE / update by CUDA events recorded between
-   the phases (`*_event_ms`), and the host clock around the iteration;
+   the phases (`*_event_ms`, at the ends of the spans `rollout`, `gae` and
+   `update` that a span listener sees, utils/spans.py), and the host clock
+   around the iteration;
 2. one iteration under torch.profiler: its kernel launches and device busy
    time over its wall time;
 3. one more iteration with the profiler on for the update only: the
@@ -37,7 +39,7 @@ untimed iteration):
    update's wall time).
 
 The window of 2 opens after one more iteration as its lead-in (`window`),
-that of 3 at the GAE mark after a small kernel as its lead-in
+that of 3 at the end of the `gae` span after a small kernel as its lead-in
 (`open_window`, `lead_in_on`); the wall clocks start after the pad.
 `lost_launches` counts, for each, the launches whose kernel the trace
 lacks (nonzero: its launch and busy figures are short).
@@ -124,7 +126,7 @@ from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
 from go2_rl_gym_tpu_torch.sim import engine
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
-from go2_rl_gym_tpu_torch.utils import registry
+from go2_rl_gym_tpu_torch.utils import registry, spans
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ("physics", "env", "rollout", "train", "substep")
@@ -572,13 +574,18 @@ def profile_train(runner, rs, top, task):
     # 1. CUDA events between the phases, host clock around the iteration
     events = []
 
-    def record(_):
+    def record():
         events.append(torch.cuda.Event(enable_timing=True))
         events[-1].record()
+
+    def phase_end(name, kind):
+        if kind == spans.END and name in ("rollout", "gae", "update"):
+            record()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    record("start")
-    rs, _ = runner.train_step(rs, mark=record)
+    record()
+    with spans.recording(runner.device), spans.listen(phase_end):
+        rs, _ = runner.train_step(rs)
     torch.cuda.synchronize()
     iter_ms = (time.perf_counter() - t0) * 1e3
     parts = {f"{name}_event_ms": events[i].elapsed_time(events[i + 1])
@@ -600,19 +607,22 @@ def profile_train(runner, rs, top, task):
     lost = {"iteration": len(launches_without_kernel(prof.events()))}
 
     # 3. the update alone under the profiler, in one more iteration: its
-    # window opens at the GAE mark (`open_window`) and closes at the
-    # update's
+    # window opens at the end of the `gae` span (`open_window`) and closes
+    # at the end of the `update` span
     prof_up = torch.profiler.profile(activities=acts)
     clock = {}
 
-    def mark(name):
+    def mark(name, kind):
+        if kind != spans.END or name not in ("rollout", "gae", "update"):
+            return
         torch.cuda.synchronize()
         if name == "gae":
             open_window(prof_up, lead_in_on(runner.device))
         clock[name] = time.perf_counter()
         if name == "update":
             prof_up.stop_trace()
-    runner.train_step(rs, mark=mark)
+    with spans.recording(runner.device), spans.listen(mark):
+        runner.train_step(rs)
     wall["update"] = (clock["update"] - clock["gae"]) * 1e3
     lost["update"] = len(launches_without_kernel(prof_up.events()))
 

@@ -29,7 +29,7 @@ import dataclasses
 import os
 import time
 from collections import deque
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,7 +48,7 @@ from go2_rl_gym_tpu_torch.env.go2_env import EnvState, Go2Env
 from go2_rl_gym_tpu_torch.export import exporter
 from go2_rl_gym_tpu_torch.train.eval_hook import AsyncEvaluator
 from go2_rl_gym_tpu_torch.train.metrics import MetricsWriter
-from go2_rl_gym_tpu_torch.utils import graphs
+from go2_rl_gym_tpu_torch.utils import graphs, spans
 
 
 class RunnerState(NamedTuple):
@@ -304,10 +304,12 @@ class OnPolicyRunner:
         steps, ep_stats, metrics = [], [], []
         for t in range(self.num_steps):
             hist_flat = history.reshape(N, -1)
-            actions, values, logp, mu, std, mem = self.act(
-                obs, priv, history, mem, gen=rs.gen,
-                noise=None if noise is None else noise[t])
-            env_state, out = env.step(env_state, actions)
+            with spans.span("act"):
+                actions, values, logp, mu, std, mem = self.act(
+                    obs, priv, history, mem, gen=rs.gen,
+                    noise=None if noise is None else noise[t])
+            with spans.span("env"):
+                env_state, out = env.step(env_state, actions)
             if self.is_recurrent:
                 mem = alg.reset_memory(mem, out.done)
             rewards = alg.process_rewards(out.rew, values, out.time_outs, gamma)
@@ -358,54 +360,57 @@ class OnPolicyRunner:
                      for k in metrics[0]})
 
     def train_step(self, rs: RunnerState,
-                   noise: Optional[torch.Tensor] = None, perms=None,
-                   mark: Optional[Callable[[str], None]] = None):
+                   noise: Optional[torch.Tensor] = None, perms=None):
         """One train iteration: rollout, GAE, update (JAX runner.py:182-295).
 
         `noise` is passed to `rollout` (drawn from rs.gen when not given)
         and `perms` to the algorithm's `update` (drawn from rs.perm_gen when
         not given); recurrent PPO's update replays from the rollout-start
-        memory. `mark`, if given, is called with "rollout", "gae" and
-        "update" as each phase has been issued, for timing (it may
-        synchronize the device). Returns (RunnerState, metrics as tensors on
-        the device): env metrics, `rew_*` and `done_count` summed over the
-        rollout and the others averaged, `ep_stats` summed, the update's
-        losses and learning rate, and `mean_noise_std` where the model has a
-        `std` parameter. Under a mesh the metrics are the global batch's,
+        memory. The iteration is the span `train_step`, and its phases the
+        spans `rollout`, `gae` and `update` (utils/spans.py: stamped on the
+        device while a recorder is on; `spans.listen` sees their edges).
+        Returns (RunnerState, metrics as tensors on the device): env
+        metrics, `rew_*` and `done_count` summed over the rollout and the
+        others averaged, `ep_stats` summed, the update's losses and
+        learning rate, and `mean_noise_std` where the model has a `std`
+        parameter. Under a mesh the metrics are the global batch's,
         all-reduced once."""
-        mark = mark or (lambda phase: None)
-        mem0 = rs.memory            # rollout-start RNN memory for the replay
-        rs, ro = self.rollout(rs, noise)
-        mark("rollout")
-        traj = ro.traj
-        cfg = self.cfg.algorithm
-        returns, advantages = common.compute_gae(
-            traj.rewards, traj.values, traj.dones, ro.last_values, cfg.gamma,
-            cfg.lam, self.mesh)
-        mark("gae")
-        if self.is_recurrent:
-            loss_metrics = self.alg.update(traj, returns, advantages, mem0,
-                                           gen=rs.perm_gen, perms=perms)
-        else:
-            loss_metrics = self.alg.update(traj, returns, advantages,
-                                           gen=rs.perm_gen, perms=perms)
-        mark("update")
+        with spans.span("train_step"):
+            mem0 = rs.memory        # rollout-start RNN memory for the replay
+            with spans.span("rollout"):
+                rs, ro = self.rollout(rs, noise)
+            traj = ro.traj
+            cfg = self.cfg.algorithm
+            with spans.span("gae"):
+                returns, advantages = common.compute_gae(
+                    traj.rewards, traj.values, traj.dones, ro.last_values,
+                    cfg.gamma, cfg.lam, self.mesh)
+            with spans.span("update"):
+                if self.is_recurrent:
+                    loss_metrics = self.alg.update(traj, returns, advantages,
+                                                   mem0, gen=rs.perm_gen,
+                                                   perms=perms)
+                else:
+                    loss_metrics = self.alg.update(traj, returns, advantages,
+                                                   gen=rs.perm_gen,
+                                                   perms=perms)
 
-        agg = {}
-        for name, vals in ro.metrics.items():
-            if name.startswith("rew_") or name == "done_count":
-                agg[name] = torch.sum(vals, dim=0)
-            elif self.mesh is not None and vals.dim() == 2:
-                agg[name] = vals     # per-step (sum, count) pairs
-            else:
-                agg[name] = torch.mean(vals, dim=0)
-        agg["ep_stats"] = ro.ep_stats
-        agg.update(loss_metrics)
-        if hasattr(self.alg.model, "std"):
-            agg["mean_noise_std"] = torch.mean(self.alg.model.std.detach())
-        if self.mesh is not None:
-            agg = self._global_metrics(agg)
-        return rs, agg
+            agg = {}
+            for name, vals in ro.metrics.items():
+                if name.startswith("rew_") or name == "done_count":
+                    agg[name] = torch.sum(vals, dim=0)
+                elif self.mesh is not None and vals.dim() == 2:
+                    agg[name] = vals     # per-step (sum, count) pairs
+                else:
+                    agg[name] = torch.mean(vals, dim=0)
+            agg["ep_stats"] = ro.ep_stats
+            agg.update(loss_metrics)
+            if hasattr(self.alg.model, "std"):
+                agg["mean_noise_std"] = torch.mean(
+                    self.alg.model.std.detach())
+            if self.mesh is not None:
+                agg = self._global_metrics(agg)
+            return rs, agg
 
     def _global_metrics(self, agg):
         """The ranks' metrics summed in one all_reduce (the replicated ones
@@ -450,15 +455,22 @@ class OnPolicyRunner:
         NCCL mesh too: the twin of `jax.jit(train_step, in_shardings=...)`,
         `mesh_lib.make_sharded_train_step`) it is a `graphs.StepGraph`: the
         first call runs eagerly (under the sync debug mode "error"),
-        captures, and later calls replay; a failed capture raises. It is made once per runner
-        and kept (made anew only for a state of another structure): a later
-        `rs` is loaded into its storage. The parameters, Adam states and
-        learning rates are updated in place (`load` and `reset_train_state`
-        write into them too), so they never move."""
+        captures, and later calls replay; a failed capture raises. It is
+        made once per runner and kept, and made anew only for a state of
+        another structure, or where its graph was captured under another
+        span recorder than the one on now (`spans.current()`: a graph's
+        stamps write the ring of the recorder on at its capture, and a
+        graph captured with none has no stamps); a later `rs` is loaded
+        into its storage. The parameters, Adam states and learning rates
+        are updated in place (`load` and `reset_train_state` write into
+        them too), so they never move."""
         mode, _ = self.train_mode()
         made = self._compiled
         if made is None or made[0] != mode or not graphs.same_structure(
-                made[1].state, rs):
+                made[1].state, rs) or (
+                isinstance(made[2], graphs.StepGraph)
+                and made[2].graph is not None
+                and made[2].recorder is not spans.current()):
             def fn(r):
                 r, m = self.train_step(r)
                 if self.metric_keys is None:
@@ -519,7 +531,13 @@ class OnPolicyRunner:
         the last, submits each to the evaluator, logs its scores as Eval/*
         as they arrive, and waits up to 600 s for the outstanding ones at
         the end. Iteration times are per chunk, as in the JAX loop, with
-        saves and exports left out. Returns a copy of the final state."""
+        saves and exports left out. While a span recorder is on
+        (utils/spans.py), each call of the step is the host span
+        `learn.launch`, the ring of the device's stamps is copied to pinned
+        memory beside each chunk's metrics, and each logged iteration also
+        logs its spans as `Perf/phase/<span>_ms` (device ms; `env` without
+        its physics, `uncovered` the iteration less its phases,
+        `learn.launch` host ms). Returns a copy of the final state."""
         rewbuffer = deque(maxlen=100)
         lenbuffer = deque(maxlen=100)
         srewbuffer = deque(maxlen=100)
@@ -537,43 +555,58 @@ class OnPolicyRunner:
         step = self.compiled_step(rs)
         state = step.state
         pinned = self.device.type == "cuda"
+        rec = spans.current()
+
+        def launch():
+            with spans.host("learn.launch"):
+                return step()
 
         def run_chunk(first_it, c):
             """Enqueue `c` iterations; returns their (c, T) metrics in host
-            memory (pinned, filled asynchronously) and the event after
-            which they are there."""
+            memory (pinned, filled asynchronously), the event after which
+            they are there, and with a span recorder on, the copy of its
+            ring and the chunk's host ms in `learn.launch`."""
             mat = None
             for j in range(c):
                 if self.debug_nans:
                     try:
                         with torch.autograd.set_detect_anomaly(True):
-                            vec = step()
+                            vec = launch()
                     except RuntimeError as e:
                         raise FloatingPointError(
                             f"iteration {first_it + j}: {e}") from e
                     self._check_finite(first_it + j, vec, state)
                 else:
-                    vec = step()
+                    vec = launch()
                 if mat is None:
                     mat = torch.empty((c, vec.numel()), device=vec.device)
                 mat[j].copy_(vec)
+            stamps = None if rec is None else \
+                (rec.copy(), rec.host_ms("learn.launch", c))
             if not pinned:
-                return mat.numpy(), None
+                return mat.numpy(), None, stamps
             host = torch.empty(mat.shape, pin_memory=True)
             host.copy_(mat, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
-            return host, done
+            return host, done, stamps
 
         t_window = time.time()
 
-        def _process(first_it, c, host, done):
+        def _process(first_it, c, host, done, stamps):
             """Wait for one chunk's metrics and run the per-iteration
             stats / log / print bookkeeping."""
             nonlocal t_window
             if done is not None:
                 done.synchronize()
                 host = host.numpy()
+            phases = [None] * c
+            if stamps is not None:
+                # the chunk's last iterations, where the ring held fewer
+                got = rec.iterations(stamps[0], c)
+                phases[c - len(got):] = got
+                for j, ms in zip(range(c - len(stamps[1]), c), stamps[1]):
+                    phases[j] = dict(phases[j] or {}, **{"learn.launch": ms})
             now = time.time()
             dt_iter = (now - t_window) / c
             self.tot_time += now - t_window
@@ -596,7 +629,7 @@ class OnPolicyRunner:
                 if self.writer and (pit % log_every == 0
                                     or pit == tot_iter - 1):
                     self._log(pit, dict(pmetrics), dt_iter, rewbuffer,
-                              lenbuffer, srewbuffer, slenbuffer)
+                              lenbuffer, srewbuffer, slenbuffer, phases[j])
                 if self.is_main and pit % print_every == 0:
                     fps = int(self.num_steps * self.env.num_envs_global
                               / dt_iter)
@@ -628,7 +661,7 @@ class OnPolicyRunner:
         it = start_iter
         while it < tot_iter:
             c = min(chunk, tot_iter - it, _next_boundary(it) - it + 1)
-            host, done = run_chunk(it, c)
+            host, done, stamps = run_chunk(it, c)
             self.tot_timesteps += self.num_steps * self.env.num_envs_global * c
             first_it, last_it = it, it + c - 1
             it += c
@@ -638,7 +671,7 @@ class OnPolicyRunner:
             # the previous chunk's metrics while this one runs on the card
             if prev is not None:
                 _process(*prev)
-            prev = (first_it, c, host, done)
+            prev = (first_it, c, host, done, stamps)
             if need_save or need_eval or sync_mode or it >= tot_iter:
                 _process(*prev)
                 prev = None
@@ -682,7 +715,8 @@ class OnPolicyRunner:
         if results:
             self.writer.flush()
 
-    def _log(self, it, metrics, dt_iter, rewbuffer, lenbuffer, srew, slen):
+    def _log(self, it, metrics, dt_iter, rewbuffer, lenbuffer, srew, slen,
+             phases=None):
         w = self.writer
         fps = int(self.num_steps * self.env.num_envs_global / dt_iter)
         done_count = float(metrics.pop("done_count", 0.0))
@@ -702,6 +736,8 @@ class OnPolicyRunner:
                 w.add_scalar(f"Train/{name}", float(val), it)
         w.add_scalar("Perf/total_fps", fps, it)
         w.add_scalar("Perf/iteration_time", dt_iter, it)
+        for name, ms in (phases or {}).items():
+            w.add_scalar(f"Perf/phase/{name}_ms", ms, it)
         if not self.is_cts:
             if rewbuffer:
                 w.add_scalar("Train/mean_reward", np.mean(rewbuffer), it)

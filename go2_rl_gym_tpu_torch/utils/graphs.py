@@ -33,6 +33,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from go2_rl_gym_tpu_torch.utils import spans
+
 # captures made, by kind ("train_step", "env_step")
 CAPTURES: Dict[str, int] = {"train_step": 0, "env_step": 0}
 
@@ -191,7 +193,9 @@ class StepGraph:
     of the state is registered with the graph.
     `kind` names the capture in `CAPTURES`. Attributes after the capture:
     `capture_s` (capture and instantiation), `pool_bytes` (device memory
-    the capture reserved), `captures` (this object's). Under an NCCL
+    the capture reserved), `captures` (this object's), `recorder` (the
+    span recorder that was on at the capture, whose ring the graph's
+    stamps write; None: the graph has no stamps). Under an NCCL
     process group the collectives are captured with the rest, in the
     default ("global") capture mode: the communicator exists before the
     capture and the warm-up has issued every collective once."""
@@ -204,6 +208,7 @@ class StepGraph:
         self.captures = 0
         self.capture_s = float("nan")
         self.pool_bytes = 0
+        self.recorder: Optional[spans.Recorder] = None
 
     def _warm_up(self):
         side = torch.cuda.Stream()
@@ -226,6 +231,7 @@ class StepGraph:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_reserved()
         t = time.perf_counter()
+        self.recorder = spans.current()
         with torch.cuda.graph(graph):
             out = self.step()
         torch.cuda.synchronize()

@@ -1,0 +1,10 @@
+"""Device ms of one train iteration in the env step (env/), the physics step
+inside it left out, read inside the replayed CUDA graph: the iteration's
+`env` spans less the `physics` spans inside them, on the device's own
+clock, the median over the untraced replays of the span call
+(portbench/spans_call.py); nothing for a program without spans."""
+from portbench import spans_call
+
+
+def read(ctx):
+    return spans_call.metric(ctx, "env")

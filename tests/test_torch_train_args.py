@@ -4,7 +4,8 @@
   `scripts.train.get_args` share has the same default; the JAX parser is
   built under a patched `sys.argv = ["train.py"]`, the port's from `[]`.
   The flags of one side only are named here: the port's `--device` (the
-  torch device) and the JAX script's `--platform` (a JAX platform).
+  torch device) and `--spans` (the device's phase spans, which the JAX
+  package lacks), and the JAX script's `--platform` (a JAX platform).
 * With no `--task`, the port's script trains the JAX script's default
   task, `go2` (PPO).
 * Who trains, as the JAX script's mesh of devices: with no launcher one
@@ -26,7 +27,7 @@ import torch
 from go2_rl_gym_tpu_torch.scripts import train as train_script
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PORT_ONLY = {"device"}
+PORT_ONLY = {"device", "spans"}
 JAX_ONLY = {"platform"}
 
 
