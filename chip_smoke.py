@@ -14,7 +14,13 @@ Phases (any failure exits non-zero and prints no result line):
    captured in one CUDA graph (no host cost per launch in the reading; the
    kernels line reports the event readings as `ms`, `plain_ms` and
    `library_ms`, the graph readings as `graph_ms`, `plain_graph_ms` and
-   `library_graph_ms`).
+   `library_graph_ms`). The rigid-body kernel (ops/csrc/rigid_body.cu) is
+   held to sim/tengine.py `rigid_body_plain` on the main path's own
+   inputs (`phase_rigid_body_kernel`: states after 24 and 240 rough-terrain
+   DR steps at 8192 / 4096 / 2048 envs, every output bit for bit), with
+   its launches (4 an eager step, 4 at a capture, none from the host in a
+   replay) and its times beside its byte bound; no single PyTorch call
+   computes it, so it has no library reading.
 4. Check the card against the port's CPU path
    (go2_rl_gym_tpu_torch.tools.card_check): a small rough-terrain env
    stepped from the same state on both devices must agree, and so must one
@@ -247,6 +253,14 @@ SUBSTEP_TOL = dict(base_pos=1e-5, base_quat=1e-5, q=1e-5, base_lin_vel=1e-4,
                    base_ang_vel=1e-4, qd=1e-4)
 # tengine vs the N-major engine (tests/test_tengine.py:68-82)
 CROSS_TOL = dict(base_pos=2e-4, q=2e-3, qd=0.1, base_quat=2e-4)
+RB_SIZES = (8192, 4096, 2048)   # envs of the rigid-body kernel's check
+RB_STEPS = (24, 240)            # policy steps before its inputs are taken
+# kernel vs plain on the card: bit for bit. The kernel rounds every product
+# on its own and adds in torch.sum's order on the card, so it gives the
+# plain version's fp32 results exactly; any difference, however small,
+# grows in the chaotic rollout into other trajectories and another training
+# run (the benchmark's `correct`), so none is tolerated
+RB_BYTES_PER_ENV = 4 * (230 + 711)   # floats read and written an env
 PROFILE_ITERS = 3               # traced calls per op table
 PROFILE_TOP = 10                # rows printed per op table
 DECOMPOSE_ITERS = {"rollout": 2, "train": 2}    # physics and env: 10
@@ -388,6 +402,148 @@ def phase_patch_kernel(results):
     del channels, out_k, out_p, lib_out, idx, cover
 
 
+def phase_rigid_body_kernel(results):
+    """The rigid-body kernel (ops/csrc/rigid_body.cu) against
+    sim/tengine.py `rigid_body_plain` on the card, on the main path's own
+    inputs: a go2_moe_cts env at 8192 envs on the flagship terrain, DR on,
+    rolled with random actions through the captured env.step; the policy
+    steps RB_STEPS[i] run eagerly with the stage's arguments recorded (its
+    4 substeps), and the first 4096 and 2048 envs of them give the smaller
+    sizes. Every output must equal the plain version's bit for bit; the
+    max abs error and the max error over each output's largest magnitude
+    are printed. Counts: 4 launches an eager step, 4 at the capture, none
+    from the host in a replay. Times (CUDA graph of 50 launches, and CUDA
+    events) beside the byte bound and the plain version's."""
+    import torch
+    from go2_rl_gym_tpu_torch.env.config import Go2Cfg
+    from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+    from go2_rl_gym_tpu_torch.ops import rigid_body as rb
+    from go2_rl_gym_tpu_torch.sim import tengine
+    from go2_rl_gym_tpu_torch.utils import graphs
+
+    N = max(RB_SIZES)
+    cfg = Go2Cfg()
+    cfg.env.num_envs = N
+    env = Go2Env(cfg)
+    dec = cfg.control.decimation
+    g = torch.Generator(device="cuda").manual_seed(0)
+    step = graphs.EnvStep(env)
+    state = env.init_state(seed=0)
+    plain_call = tengine.rigid_body
+    recorded = []
+
+    def record(*args):
+        recorded.append(args)
+        return plain_call(*args)
+
+    taken = {}
+    done = 0
+    with torch.no_grad():
+        for target in RB_STEPS:
+            start = done
+            reset_launch_counts()
+            while done < target - 1:
+                acts = 0.5 * torch.randn((N, 12), generator=g, device="cuda")
+                state, _ = step(state, acts)
+                done += 1
+            torch.cuda.synchronize()
+            graphed = launch_counts()["rigid_body"]
+            # the first call warms up and captures, one launch a substep
+            # each; a replay launches nothing from the host
+            want = 2 * dec if start == 0 else 0
+            print(f"rigid body: policy steps {start + 1}-{done} through the "
+                  f"captured env.step: {graphed} host launches, want {want}")
+            if graphed != want:
+                raise AssertionError(f"rigid_body launched {graphed} times "
+                                     f"in a stretch of env.step calls")
+            state = graphs.copy_tree(state)
+            acts = 0.5 * torch.randn((N, 12), generator=g, device="cuda")
+            reset_launch_counts()
+            tengine.rigid_body = record
+            try:
+                state, _ = env.step(state, acts)
+            finally:
+                tengine.rigid_body = plain_call
+            torch.cuda.synchronize()
+            done += 1
+            eager = launch_counts()["rigid_body"]
+            if eager != dec or len(recorded) != dec:
+                raise AssertionError(f"an eager step launched rigid_body "
+                                     f"{eager} times, want {dec}")
+            taken[target] = list(recorded)
+            recorded.clear()
+
+    def cut(args, n):
+        layout, params, dyn_t, s, tau, kd, st = args
+        return (layout, params,
+                {k: v[..., :n].contiguous() for k, v in dyn_t.items()},
+                tengine.TState(*[x[..., :n] for x in s]), tau[..., :n],
+                kd[..., :n], st)
+
+    names = tengine.RigidBody._fields[:-1] + ("B", "Dinv", "Sinv")
+
+    def flat(out):
+        return tuple(out[:-1]) + tuple(out.si)
+
+    worst = {k: (0.0, 0.0) for k in names}
+    unequal = dict.fromkeys(names, 0)
+    with torch.no_grad():
+        for target, calls in taken.items():
+            for n in RB_SIZES:
+                for args in calls:
+                    a = cut(args, n)
+                    before = rb.LAUNCHES["rigid_body"]
+                    got = flat(tengine.rigid_body(*a))
+                    if rb.LAUNCHES["rigid_body"] != before + 1:
+                        raise AssertionError("rigid_body on CUDA tensors did "
+                                             "not launch the kernel")
+                    want = flat(tengine.rigid_body_plain(*a))
+                    for k, x, y in zip(names, got, want):
+                        if not bool(torch.isfinite(x).all()):
+                            raise AssertionError(f"rigid_body {k}: non-finite")
+                        err = float((x - y).abs().max())
+                        rel = err / max(float(y.abs().max()), 1e-30)
+                        worst[k] = (max(worst[k][0], err),
+                                    max(worst[k][1], rel))
+                        unequal[k] += int((x != y).sum())
+    print("rigid body kernel vs plain on the card, states after "
+          f"{RB_STEPS} policy steps, {RB_SIZES} envs, 4 substeps each: "
+          + ", ".join(f"{k} {e:.3e} ({r:.2e} of scale, {unequal[k]} "
+                      f"entries unequal)" for k, (e, r) in worst.items()))
+    bad = {k: v for k, v in unequal.items() if v}
+    if bad:
+        raise AssertionError(f"rigid_body kernel differs from the plain "
+                             f"version: {bad}")
+
+    times = {}
+    for n in RB_SIZES:
+        a = cut(taken[RB_STEPS[-1]][0], n)
+        bound_ms = n * RB_BYTES_PER_ENV / H100_BYTES_PER_S * 1e3
+        k_g = graph_ms(lambda: tengine.rigid_body(*a))
+        p_g = graph_ms(lambda: tengine.rigid_body_plain(*a))
+        k_e = cuda_ms(lambda: tengine.rigid_body(*a))
+        p_e = cuda_ms(lambda: tengine.rigid_body_plain(*a))
+        times[n] = dict(graph_ms=k_g, plain_graph_ms=p_g, ms=k_e,
+                        plain_ms=p_e, bound_ms=bound_ms)
+        print(f"rigid_body at N={n}: the 50 launches in one CUDA graph "
+              f"(median of 5 replays): kernel {k_g:.4f} ms "
+              f"({bound_ms / k_g:.1%} of the bound), plain {p_g:.4f} ms "
+              f"({p_g / k_g:.0f}x); CUDA events around 50 launches: kernel "
+              f"{k_e:.4f} ms, plain {p_e:.4f} ms; bound {bound_ms:.4f} ms "
+              f"({n * RB_BYTES_PER_ENV / 1e6:.1f} MB at 3.35 TB/s)")
+    big = times[max(RB_SIZES)]
+    results["rigid_body"] = dict(
+        name="rigid_body", route="cuda",
+        source="go2_rl_gym_tpu_torch/ops/csrc/rigid_body.cu",
+        replaces=None, bit_exact=not bad,
+        max_abs_err={k: e for k, (e, _) in worst.items()},
+        max_rel_err={k: r for k, (_, r) in worst.items()},
+        ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+        bound_by="bytes", graph_ms=big["graph_ms"],
+        plain_graph_ms=big["plain_graph_ms"], by_envs=times)
+    del taken, env, step, state
+
+
 def phase_cpu_agreement():
     """The card against the port's CPU path (held against the JAX package
     by the tests): 4 rough-terrain steps from one state, and one CTS
@@ -410,18 +566,18 @@ def phase_cpu_agreement():
 def kernel_modules():
     """The port's modules that own a hand-written kernel; each names its
     source (SOURCE) and counts its launches (LAUNCHES)."""
-    from go2_rl_gym_tpu_torch.ops import terrain_patches
-    return [terrain_patches]
+    from go2_rl_gym_tpu_torch import ops
+    return list(ops.KERNEL_MODULES)
 
 
 def launch_counts():
-    return {k: v for m in kernel_modules() for k, v in m.LAUNCHES.items()}
+    from go2_rl_gym_tpu_torch import ops
+    return ops.launch_counts()
 
 
 def reset_launch_counts():
-    for m in kernel_modules():
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] = 0
+    from go2_rl_gym_tpu_torch import ops
+    ops.reset_launch_counts()
 
 
 def phase_play():
@@ -1090,7 +1246,7 @@ def phase_train_ddp_graph():
                   f"{rr['mode']}; {job['iterations']} iterations, max abs "
                   f"difference graphed vs eager (deterministic algorithms "
                   f"on): " + json.dumps(err) + f"; captures "
-                  f"{rr['captures']}, patch launches warm-up "
+                  f"{rr['captures']}, kernel launches warm-up "
                   f"{launches['warm_up']}, captured {launches['capture']}, "
                   f"in {job['iterations'] - 1} replays "
                   f"{launches['replays']}; capture + instantiate "
@@ -1103,11 +1259,16 @@ def phase_train_ddp_graph():
                 bad.append(f"{task} rank {r}: graphed != eager {err}")
             if rr["captures"] != 1:
                 bad.append(f"{task} rank {r}: {rr['captures']} captures")
+            # rough terrain: the patch kernel once a policy step, the
+            # rigid-body kernel once a substep; none from the host in a
+            # replay
             steps = rr["steps"]
+            want = {"extract_patches": steps, "rigid_body": 4 * steps}
             if (launches["warm_up"], launches["capture"],
-                    launches["replays"]) != (steps, steps, 0):
-                bad.append(f"{task} rank {r}: patch launches {launches}")
-            captured += launches["capture"]
+                    launches["replays"]) != (want, want,
+                                             dict.fromkeys(want, 0)):
+                bad.append(f"{task} rank {r}: kernel launches {launches}")
+            captured += launches["capture"]["extract_patches"]
             # data-parallel: every rank holds rank 0's parameters
             other = [k for k, v in rr["compiled"]["params"].items()
                      if not torch.equal(v, res[0][i]["compiled"]["params"][k])]
@@ -1858,6 +2019,7 @@ def main():
         fail("kernel build failed")
 
     phases = [("patch kernel", lambda: phase_patch_kernel(results)),
+              ("rigid body kernel", lambda: phase_rigid_body_kernel(results)),
               ("card vs CPU", phase_cpu_agreement),
               ("play", phase_play),
               ("rollout", phase_rollout),

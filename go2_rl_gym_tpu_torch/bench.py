@@ -16,9 +16,10 @@ Method (bench.py:49-81):
   `capture_s`, the counterpart of XLA's compile), the second a replay.
 * The guard, the twin of "the jit cache stays at 1 entry":
   `graphs.CAPTURES["train_step"]` went up by exactly 1 over the warm-up
-  and stays there after every timed dispatch, and
-  `terrain_patches.LAUNCHES["extract_patches"]` does not grow during any
-  replay (growth would mean that the rollout runs from the host). On the
+  and stays there after every timed dispatch, and no hand-written kernel's
+  launch count (`ops.launch_counts()`: the patch and rigid-body kernels)
+  grows during any replay (growth would mean that the rollout runs from
+  the host). On the
   CPU the step is eager and captures nothing: the guard then holds the
   captures at 0, and the output says so.
 * A dispatch (`run_k`) enqueues BENCH_ITERS (10) calls of the step, each
@@ -67,7 +68,7 @@ from go2_rl_gym_tpu_torch.device import resolve_device
 from go2_rl_gym_tpu_torch.env.config import (Go2Cfg, TrainCfg,
                                              go2_moe_cts_train_cfg)
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
-from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
+from go2_rl_gym_tpu_torch import ops
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
 from go2_rl_gym_tpu_torch.utils import graphs
 
@@ -78,7 +79,7 @@ TASK = "go2_moe_cts"
 
 class GuardError(RuntimeError):
     """The timed step was not the one captured graph: it was captured again,
-    or the rollout launched the patch kernel from the host."""
+    or the rollout launched a hand-written kernel from the host."""
 
 
 def card(device: torch.device):
@@ -151,18 +152,20 @@ def run(num_envs: int = 4096, iters: int = 10, reps: int = 3,
     step()
     _sync(dev)
     capture_s = time.perf_counter() - t
-    patch0 = tp.LAUNCHES["extract_patches"]
+    launches0 = ops.launch_counts()
     step()
     _sync(dev)
 
     def guard(when):
         caps = graphs.CAPTURES["train_step"] - caps0
-        grown = tp.LAUNCHES["extract_patches"] - patch0
-        if caps != want or grown:
+        grown = {k: v - launches0[k]
+                 for k, v in ops.launch_counts().items()}
+        if caps != want or any(grown.values()):
             raise GuardError(
                 f"{when}: {caps} captures of the train step (want {want}), "
-                f"{grown} patch launches from the host after the warm-up "
-                f"(want 0)")
+                f"{grown['extract_patches']} patch launches from the host "
+                f"after the warm-up (want 0), {grown['rigid_body']} "
+                f"rigid-body launches from the host (want 0)")
 
     guard("after the warm-up")
     value_loss = torch.empty(iters, device=dev)
@@ -185,7 +188,7 @@ def run(num_envs: int = 4096, iters: int = 10, reps: int = 3,
     name, power_limit = card(dev)
     held = (f"{want} capture of the train step" if want else
             f"eager on the {dev.type}: 0 captures of the train step")
-    held += (f"; 0 patch launches from the host in the warm-up's second "
+    held += (f"; 0 kernel launches from the host in the warm-up's second "
              f"call and {1 + reps} dispatches of {iters}")
     return {
         "metric": METRIC,

@@ -23,40 +23,39 @@ torch.distributed.run's environment. JOB.pt (torch.save) holds {"jobs":
   inference parameters at the save.
 * "train": the task built through the registry at its full config,
   `iterations` timed train iterations; the result holds their host-clock
-  times, env-steps/s of the rank and of all ranks, the patch kernel's
-  launches per iteration, the metrics and the parameters. With
-  "checkpoint" (a path) the ranks then `save` there and `load` it back,
-  and the result says whether every tensor and generator came back equal;
-  with "profile" one more iteration runs with torch.profiler on from the
-  rollout's end (GAE, update, metrics: every collective of it; with the
-  launches whose kernel its trace lacks; the window opens after a lead-in,
-  `profile_rollout.open_window`).
+  times, env-steps/s of the rank and of all ranks, the hand-written kernels'
+  launches per iteration (`ops.launch_counts()`), the metrics and the
+  parameters. With "checkpoint" (a path) the ranks then `save` there and
+  `load` it back, and the result says whether every tensor and generator
+  came back equal; with "profile" one more iteration runs with
+  torch.profiler on from the rollout's end (GAE, update, metrics: every
+  collective of it; with the launches whose kernel its trace lacks; the
+  window opens after a lead-in, `profile_rollout.open_window`).
 * "dryrun": the graft dry run (graft_entry.dryrun_multichip): the runner
   of the job's config, `init_runner_state(0)` and the compiled step
   (`mesh.make_sharded_train_step`) called twice: one iteration (on the card
   under NCCL the eager warm-up, then the capture) and one more (a replay);
-  the result holds the first call's metrics, the patch kernel's launches,
+  the result holds the first call's metrics, the kernels' launches,
   whether the step was a graph, and whether every metric is finite.
-* "graph": the compiled step against eager `train_step`s from one state
-  (the registry's task at `num_envs` global envs, from random episode
-  lengths, seeded by the task's seed), with deterministic algorithms on:
-  `iterations` K eager iterations, then K of the compiled step (under
-  NCCL on a card the warm-up, the capture and K - 1 replays; else K eager
-  calls of the in-place step). The result holds both ends (parameters,
-  Adam states, learning rates, the RunnerState with its generators, the
-  stacked metrics; `end_state`), the mode, the captures, the patch launches of
-  warm-up, capture and replays, capture s and pool bytes; with "timed" n,
-  n eager (deterministic algorithms off) / compiled (as captured, with
-  them on) pairs alternating (host ms ending in a synchronize, the device
-  ms of each compiled call by CUDA events), the update's
-  gathers (shapes, bytes, device ms of one by CUDA events) and the NCCL
-  and memcpy rows of one profiled compiled call (with the launches whose
-  kernel its trace lacks; the window opens after one more compiled call as
-  its lead-in, `profile_rollout.window`); with "learn" n, `learn`
-  of n iterations on the same runner (saving under "log_root" if given)
-  and rank 0's logged metrics; "seconds" times each part. With "no_mesh"
-  the rank runs all of it on one process's runner of the `num_envs` envs
-  (no collectives).
+* "graph": the compiled step against eager `train_step`s from one state (the
+  registry's task at `num_envs` global envs, from random episode lengths,
+  seeded by the task's seed), with deterministic algorithms on: `iterations`
+  K eager iterations, then K of the compiled step (under NCCL on a card the
+  warm-up, the capture and K - 1 replays; else K eager calls of the in-place
+  step). The result holds both ends (parameters, Adam states, learning
+  rates, the RunnerState with its generators, the stacked metrics;
+  `end_state`), the mode, the captures, the kernels' launches in warm-up,
+  capture and replays, capture s and pool bytes; with "timed" n, n eager
+  (deterministic algorithms off) / compiled (as captured, with them on)
+  pairs alternating (host ms ending in a synchronize, the device ms of each
+  compiled call by CUDA events), the update's gathers (shapes, bytes, device
+  ms of one by CUDA events) and the NCCL and memcpy rows of one profiled
+  compiled call (with the launches whose kernel its trace lacks; the window
+  opens after one more compiled call as its lead-in,
+  `profile_rollout.window`); with "learn" n, `learn` of n iterations on the
+  same runner (saving under "log_root" if given) and rank 0's logged
+  metrics; "seconds" times each part. With "no_mesh" the rank runs all of it
+  on one process's runner of the `num_envs` envs (no collectives).
 * "learn": `learn` of `iterations` iterations from a global state and
   train state (as "step"), the act noise of each iteration injected; the
   result holds rank 0's logged metrics, the final parameters and the
@@ -84,7 +83,7 @@ import torch
 
 from go2_rl_gym_tpu_torch.agents import common
 from go2_rl_gym_tpu_torch.distributed import mesh as mesh_lib
-from go2_rl_gym_tpu_torch.ops import terrain_patches
+from go2_rl_gym_tpu_torch import ops
 from go2_rl_gym_tpu_torch.tools import card_check
 from go2_rl_gym_tpu_torch.train.runner import _pack, _unpack
 from go2_rl_gym_tpu_torch.utils import graphs, registry, spans
@@ -269,13 +268,12 @@ def run_train(job, device, mesh=None):
     times, launches = [], []
     for _ in range(job["iterations"]):
         sync()
-        for k in terrain_patches.LAUNCHES:
-            terrain_patches.LAUNCHES[k] = 0
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         rs, m = runner.train_step(rs)
         sync()
         times.append(time.perf_counter() - t0)
-        launches.append(dict(terrain_patches.LAUNCHES))
+        launches.append(ops.launch_counts())
     samples = tc.runner.num_steps_per_env * env.num_envs
     roundtrip = None
     if job.get("checkpoint"):
@@ -297,8 +295,7 @@ def run_train(job, device, mesh=None):
 
 
 def _reset_launches():
-    for k in terrain_patches.LAUNCHES:
-        terrain_patches.LAUNCHES[k] = 0
+    ops.reset_launch_counts()
 
 
 def _sync(device):
@@ -326,7 +323,7 @@ def run_dryrun(job, device, mesh=None):
     again = step().clone()
     _sync(runner.device)
     metrics = _metrics(runner, first)
-    return {"metrics": metrics, "launches": dict(terrain_patches.LAUNCHES),
+    return {"metrics": metrics, "launches": ops.launch_counts(),
             "graphed": isinstance(step, graphs.StepGraph),
             "mode": runner.train_mode(),
             "finite": all(bool(torch.isfinite(v).all())
@@ -404,17 +401,17 @@ def run_graph(job, device, mesh=None):
         _reset_launches()
         if graphed:
             rows = [step._warm_up().clone()]
-            warm = terrain_patches.LAUNCHES["extract_patches"]
+            warm = ops.launch_counts()
             _reset_launches()
             step._capture()
-            captured = terrain_patches.LAUNCHES["extract_patches"]
+            captured = ops.launch_counts()
         else:
-            rows, warm, captured = [], 0, 0
+            rows, warm, captured = [], {}, {}
         _reset_launches()
         while len(rows) < k:
             rows.append(step().clone())
         _sync(runner.device)
-        replayed = terrain_patches.LAUNCHES["extract_patches"]
+        replayed = ops.launch_counts()
         compiled = end_state(runner, step.state, rows)
         seconds["compiled"] = lap()
     finally:

@@ -17,7 +17,8 @@ On the card `env.step` runs as one CUDA graph (`utils/graphs.py`
   Recurrent PPO is refused: the JAX package's play has no export for it
   either. The last line is a JSON object: the checkpoint, the exported
   files, whether every obs and reward was finite, and the process's
-  kernel launches (`terrain_patches.LAUNCHES`).
+  kernel launches (`ops.launch_counts()`: the patch and rigid-body
+  kernels).
 * the committed policy (`play`, with `--policy`; a bare `--policy` is
   doc/evidence/go2_moe_cts_r5_75k.pt): the student
   encoder reads the obs history, the actor's mean `mu` drives `env.step`,
@@ -49,7 +50,7 @@ from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
 from go2_rl_gym_tpu_torch.export import exporter
 from go2_rl_gym_tpu_torch.export.importer import load_pt_policy
-from go2_rl_gym_tpu_torch.ops import terrain_patches
+from go2_rl_gym_tpu_torch import ops
 from go2_rl_gym_tpu_torch.utils import graphs
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
 from go2_rl_gym_tpu_torch.utils import registry
@@ -206,7 +207,7 @@ def play_checkpoint(task: str = "go2_moe_cts", experiment_name=None,
                finite=bool(torch.stack(finite).all()))
     print(json.dumps({"checkpoint": path, "exported": exported,
                       "finite": res["finite"],
-                      "launches": dict(terrain_patches.LAUNCHES)}))
+                      "launches": ops.launch_counts()}))
     return res
 
 

@@ -55,7 +55,8 @@ and the stamps as kernels `go2_span_stamp`. Under a mesh each rank records
 its own spans and rank 0 logs them.
 
 Each rank ends by printing its launches of the hand-written kernels
-(`terrain_patches.LAUNCHES`) as `launches: {"rank": r, ...}`.
+(`ops.launch_counts()`: the patch and rigid-body kernels) as
+`launches: {"rank": r, ...}`.
 
 Usage:
     python -m go2_rl_gym_tpu_torch.scripts.train --task go2_moe_cts \
@@ -185,7 +186,7 @@ def profile(runner, rs, profile_dir, rank: int):
 
 def main(argv=None):
     args = get_args(argv)
-    from go2_rl_gym_tpu_torch.ops import terrain_patches
+    from go2_rl_gym_tpu_torch import ops
     from go2_rl_gym_tpu_torch.utils import registry, spans
     from go2_rl_gym_tpu_torch.utils.helpers import (get_load_path,
                                                     update_cfg_from_args)
@@ -245,7 +246,7 @@ def main(argv=None):
             iters -= PROFILE_START + PROFILE_ITERS
         rs = runner.learn(rs, iters)
     print("launches: " + json.dumps({"rank": rank,
-                                     **terrain_patches.LAUNCHES}),
+                                     **ops.launch_counts()}),
           flush=True)
     return runner, rs
 

@@ -10,6 +10,11 @@ The reference's one-hot contractions (contact selection, the warm-start
 scatter, the per-body force sum) become gathers and scatters here: exact in
 fp32, where the reference needed HIGHEST matmul precision to be exact.
 
+A substep's rigid-body stage (`rigid_body`: world kinematics, geoms, the
+joint-limit spring, CRBA/RNEA and the block-Schur factors) is one
+hand-written CUDA kernel on the card (ops/rigid_body.py) and
+`rigid_body_plain` on the CPU; the contact stage after it is PyTorch.
+
 Public entry: `make_physics_step(model, params, terrain, decimation)`.
 """
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from go2_rl_gym_tpu_torch.ops import rigid_body as rb
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
 from go2_rl_gym_tpu_torch.sim import tmath as tm
 from go2_rl_gym_tpu_torch.sim.engine import (DEPTH, NLEG, DynParams,
@@ -299,6 +305,8 @@ class _Static(NamedTuple):
     gravity: torch.Tensor        # (3,) [0, 0, params.gravity]
     ref_z: torch.Tensor          # (3,1) tangent-basis reference [0, 0, 1]
     ref_x: torch.Tensor          # (3,1) its fallback [1, 0, 0]
+    rb_table: torch.Tensor       # the rigid-body kernel's float table
+    rb_itable: torch.Tensor      # and its int table (ops/rigid_body.py)
 
 
 def _static(model: RobotModel, layout: QuadLayout, device,
@@ -312,6 +320,9 @@ def _static(model: RobotModel, layout: QuadLayout, device,
     report = np.ones(len(gb), np.float32)
     report[np.asarray(model.foot_geom_idx)] = 0.0
     long = dict(dtype=torch.long, device=device)
+    rb_table, rb_itable = rb.tables(
+        layout.axes, layout.origins, model.dof_lower, model.dof_upper,
+        [0.0, 0.0, gravity], gb, model.geom_offset, device)
     return _Static(
         geom_body=torch.as_tensor(gb, **long),
         geom_offset=_f32(model.geom_offset, device)[:, :, None],
@@ -325,23 +336,30 @@ def _static(model: RobotModel, layout: QuadLayout, device,
         origins=_f32(layout.origins, device)[..., None],
         gravity=_f32([0.0, 0.0, gravity], device),
         ref_z=_f32([0.0, 0.0, 1.0], device)[:, None],
-        ref_x=_f32([1.0, 0.0, 0.0], device)[:, None])
+        ref_x=_f32([1.0, 0.0, 0.0], device)[:, None],
+        rb_table=rb_table, rb_itable=rb_itable)
 
 
-def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
-             terrain: TerrainData, dyn_t, fric, rest, s: TState,
-             tau, implicit_damping, lam_geom, patch_data=None, static=None):
-    """One physics substep, full batch, T layout.
+class RigidBody(NamedTuple):
+    """The rigid-body stage of a substep, as the contact stage reads it."""
+    gpos: torch.Tensor           # (G,3,N) geom centres, world
+    gvel: torch.Tensor           # (G,3,N) geom velocities, world
+    jpos: torch.Tensor           # (12,3,N) joint positions, world
+    axis_w: torch.Tensor         # (12,3,N) joint axes, world
+    Rbase: torch.Tensor          # (3,3,N)
+    rhs0: torch.Tensor           # (18,N) tau_gen - bias
+    si: TInertia
 
-    tau, implicit_damping: (12, N). lam_geom: (G, 3, N) warm-start impulses
-    from the previous substep, keyed by geom. Returns (TState, outputs dict,
-    new lam_geom)."""
+
+def rigid_body_plain(layout: QuadLayout, params: SimParams, dyn_t,
+                     s: TState, tau, implicit_damping, st: _Static
+                     ) -> RigidBody:
+    """World kinematics, geoms, the joint-limit spring and CRBA/RNEA of one
+    substep in plain PyTorch: the version the CPU takes, and the one the
+    CUDA kernel is held to."""
     dt = params.dt
-    K = params.num_contacts
     N = s.pos.shape[-1]
     dev = s.pos.device
-    st = (static if static is not None
-          else _static(model, layout, dev, params.gravity))
 
     R, p, w, vlin, axis_w, jpos = _fk(layout, s, st)
 
@@ -365,6 +383,54 @@ def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
     si, bias, Rbase = _mass_matrix_and_bias(layout, params, dyn_t, s,
                                             damping_eff, st)
     tau_gen = torch.cat([torch.zeros((6, N), device=dev), tau_tot], dim=0)
+    return RigidBody(gpos, gvel, jpos, axis_w, Rbase, tau_gen - bias, si)
+
+
+def rigid_body(layout: QuadLayout, params: SimParams, dyn_t, s: TState, tau,
+               implicit_damping, st: _Static) -> RigidBody:
+    """`rigid_body_plain` for CPU tensors; for CUDA tensors the kernel
+    (ops/csrc/rigid_body.cu), which raises on what it cannot take. dyn_t's
+    tensors are contiguous on the card (`make_physics_step` makes them so
+    once a policy step). Overridable as a torch function on the card, so
+    that a TorchFunctionMode names the kernel after its caller
+    (tools/profile_rollout.py `SourceLines`)."""
+    if not s.pos.is_cuda:
+        return rigid_body_plain(layout, params, dyn_t, s, tau,
+                                implicit_damping, st)
+    if torch.overrides.has_torch_function((s.pos, tau)):
+        return torch.overrides.handle_torch_function(
+            rigid_body, (s.pos, tau), layout, params, dyn_t, s, tau,
+            implicit_damping, st)
+    scalars = rb.scalars(params.dt, params.armature,
+                         params.joint_limit_stiffness,
+                         params.joint_limit_damping)
+    (gpos, gvel, jpos, axis_w, Rbase, rhs0, B, Dinv,
+     Sinv) = rb.rigid_body_cuda(
+        tuple(s), tau, implicit_damping, dyn_t["mass"], dyn_t["com"],
+        dyn_t["inertia"], st.rb_table, st.rb_itable, scalars)
+    return RigidBody(gpos, gvel, jpos, axis_w, Rbase, rhs0,
+                     TInertia(B=B, Dinv=Dinv, Sinv=Sinv))
+
+
+def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
+             terrain: TerrainData, dyn_t, fric, rest, s: TState,
+             tau, implicit_damping, lam_geom, patch_data=None, static=None):
+    """One physics substep, full batch, T layout.
+
+    tau, implicit_damping: (12, N). lam_geom: (G, 3, N) warm-start impulses
+    from the previous substep, keyed by geom. Returns (TState, outputs dict,
+    new lam_geom)."""
+    dt = params.dt
+    K = params.num_contacts
+    N = s.pos.shape[-1]
+    dev = s.pos.device
+    st = (static if static is not None
+          else _static(model, layout, dev, params.gravity))
+
+    gpos, gvel, jpos, axis_w, Rbase, rhs0, si = rigid_body(
+        layout, params, dyn_t, s, tau, implicit_damping, st)
+    gb = st.geom_body
+    G = gb.shape[0]
 
     # ---- contact candidates: top-K most penetrating ----
     if patch_data is not None:
@@ -433,7 +499,7 @@ def _substep(model: RobotModel, layout: QuadLayout, params: SimParams,
     Jc_flat = Jc.reshape(K * 3, 18, N)
 
     # ---- one structured solve: free motion + contact columns ----
-    rhs = torch.cat([(tau_gen - bias)[:, None, :],
+    rhs = torch.cat([rhs0[:, None, :],
                      torch.movedim(Jc_flat, 0, 1)], dim=1)  # (18,1+3K,N)
     sol = _structured_solve(si, rhs)
     du_free = sol[:, 0, :]                                # (18,N)
@@ -537,9 +603,10 @@ def make_physics_step(model: RobotModel, params: SimParams,
     def step(dyn: DynParams, state: SimState, targets, kp, kd,
              motor_strength, motor_offset):
         s = to_t(state)
-        dyn_t = dict(mass=torch.movedim(dyn.mass, 0, -1),
-                     com=torch.movedim(dyn.com, 0, -1),
-                     inertia=torch.movedim(dyn.inertia, 0, -1))
+        # batch-last and contiguous once a policy step, for every substep
+        dyn_t = dict(mass=torch.movedim(dyn.mass, 0, -1).contiguous(),
+                     com=torch.movedim(dyn.com, 0, -1).contiguous(),
+                     inertia=torch.movedim(dyn.inertia, 0, -1).contiguous())
         fric = dyn.friction
         rest = dyn.restitution
         kpT, kdT = kp.T, kd.T

@@ -59,31 +59,31 @@ of init_state(0), and per mode:
   (sim/engine.py make_batched_substep) on the global heightfield from that
   state, zero torque, implicit damping 0.5, beside tengine's `physics`.
 
-With `--ops MODE` (twin of tools/profile_physics.py), one warm-up call,
-then `--iters` calls (3; 1 for train) under torch.profiler, whose window
-opens after the warm-up call has run with its device tracing on, the
-traced calls starting WINDOW_PAD_S later (`window`: a trace can lack the
-kernels launched in the first milliseconds of its window; a table whose
-trace lacks the kernel of a launch raises). Every op that
-launched device work gets its self device time: each kernel counts once,
-at the op around its launch call, so nothing nested is counted twice
-(aten::einsum -> aten::bmm -> kernel counts at aten::bmm). Each op is
-attributed to the innermost frame in a file of this package that called into torch, e.g.
-`sim/tengine.py:412`: `SourceLines` names a profiler range after that
-line around every torch call. torch.profiler's `with_stack` does not serve
-here: its frames name a Python function by the line of its def, not of
-the call, and their order differs between torch versions. Ops of a
-backward pass take the line of the forward op that recorded them. The
-patch kernel, launched through ctypes and not by an op of torch, counts
-at its own range (`extract_patches`). Prints the JAX tool's header and rows (ms per call,
-percent, op, source), then one JSON line: the rows, the total, the share
-of it with a source line, the sum of the profiler's kernel times, the
-kernel launches per call, the patch kernel's launches, the seconds of the
-traced calls (`trace_s`: from the first traced call to the synchronize
-after the last, without the profiler's start, pad and flush) and of the
-reduction (`reduce_s`). With `--device cpu` there is no device activity:
-the table then ranks self CPU time, and the JSON says so
-(`"time": "host"`).
+With `--ops MODE` (twin of tools/profile_physics.py), one warm-up call, then
+`--iters` calls (3; 1 for train) under torch.profiler, whose window opens
+after the warm-up call has run with its device tracing on, the traced calls
+starting WINDOW_PAD_S later (`window`: a trace can lack the kernels launched
+in the first milliseconds of its window; a table whose trace lacks the
+kernel of a launch raises). Every op that launched device work gets its self
+device time: each kernel counts once, at the op around its launch call, so
+nothing nested is counted twice (aten::einsum -> aten::bmm -> kernel counts
+at aten::bmm). Each op is attributed to the innermost frame in a file of
+this package that called into torch, e.g. `sim/tengine.py:412`:
+`SourceLines` names a profiler range after that line around every torch
+call. torch.profiler's `with_stack` does not serve here: its frames name a
+Python function by the line of its def, not of the call, and their order
+differs between torch versions. Ops of a backward pass take the line of the
+forward op that recorded them. The patch kernel and the rigid-body kernel,
+launched through ctypes and not by an op of torch, count at their own ranges
+(`extract_patches`, `rigid_body`) inside their caller's line. Prints the JAX
+tool's header and rows (ms per call, percent, op, source), then one JSON
+line: the rows, the total, the share of it with a source line, the sum of
+the profiler's kernel times, the kernel launches per call, the patch and
+rigid-body kernels' launches, the seconds of the traced calls (`trace_s`:
+from the first traced call to the synchronize after the last, without the
+profiler's start, pad and flush) and of the reduction (`reduce_s`). With
+`--device cpu` there is no device activity: the table then ranks self CPU
+time, and the JSON says so (`"time": "host"`).
 
 With `--decompose [physics env rollout train]` (twin of
 tools/bench_decompose.py; default `env physics`), each stage runs once
@@ -123,6 +123,8 @@ from torch.overrides import TorchFunctionMode
 from go2_rl_gym_tpu_torch.device import resolve_device
 from go2_rl_gym_tpu_torch.env.config import Go2Cfg, go2_moe_cts_train_cfg
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env
+from go2_rl_gym_tpu_torch import ops
+from go2_rl_gym_tpu_torch.ops import rigid_body as rb
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
 from go2_rl_gym_tpu_torch.sim import engine
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner
@@ -499,6 +501,7 @@ def op_table(setup: Setup, iters=None, top=40):
     lines = SourceLines()
     with window(acts, warm_up) as prof:
         patch0 = tp.LAUNCHES["extract_patches"]
+        rb0 = rb.LAUNCHES["rigid_body"]
         t0 = time.perf_counter()
         with lines:
             for _ in range(iters):
@@ -506,6 +509,7 @@ def op_table(setup: Setup, iters=None, top=40):
         _sync(dev)
         trace_s = time.perf_counter() - t0
         patch = tp.LAUNCHES["extract_patches"] - patch0
+        rigid = rb.LAUNCHES["rigid_body"] - rb0
     t0 = time.perf_counter()
     events = prof.events()
     lost = launches_without_kernel(events)
@@ -526,7 +530,8 @@ def op_table(setup: Setup, iters=None, top=40):
         kernel_ms=kernel_us / iters / 1e3 if on_card else None,
         attributed_share=with_src / total if total else 0.0,
         launches_per_call=kernel_n / iters,
-        patch_kernel_launches=patch, trace_s=trace_s, reduce_s=reduce_s,
+        patch_kernel_launches=patch, rigid_body_kernel_launches=rigid,
+        trace_s=trace_s, reduce_s=reduce_s,
         device=torch.cuda.get_device_name(dev) if on_card else "cpu",
         rows=out)
     print(f"total {kind} self time: {res['total_ms']:.2f} ms/iter "
@@ -598,12 +603,13 @@ def profile_train(runner, rs, top, task):
         rs, _ = runner.train_step(rs)
         torch.cuda.synchronize()
     with window(acts, lead_in) as prof:
-        tp.LAUNCHES["extract_patches"] = 0
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         rs, _ = runner.train_step(rs)
         torch.cuda.synchronize()
         wall = {"iteration": (time.perf_counter() - t0) * 1e3}
         patch_launches = tp.LAUNCHES["extract_patches"]
+        rigid_launches = rb.LAUNCHES["rigid_body"]
     lost = {"iteration": len(launches_without_kernel(prof.events()))}
 
     # 3. the update alone under the profiler, in one more iteration: its
@@ -639,6 +645,7 @@ def profile_train(runner, rs, top, task):
                          for k, v in kernels.items()},
         lost_launches=lost,
         patch_kernel_launches_per_iteration=patch_launches,
+        rigid_body_kernel_launches_per_iteration=rigid_launches,
         top_update_kernels=[dict(name=e.key[:90], calls=e.count,
                                  device_ms=_device_us(e) / 1e3)
                             for e in top_up])
@@ -735,7 +742,7 @@ def main(argv=None):
             rs, _ = runner.rollout(rs)
             torch.cuda.synchronize()
         with window(acts, lead_in) as prof:
-            tp.LAUNCHES["extract_patches"] = 0
+            ops.reset_launch_counts()
             t0 = time.perf_counter()
             rs, _ = runner.rollout(rs)
             torch.cuda.synchronize()
@@ -755,6 +762,7 @@ def main(argv=None):
         kernel_launches_per_step=launches / args.steps,
         lost_launches=len(launches_without_kernel(prof.events())),
         patch_kernel_launches=dict(tp.LAUNCHES),
+        rigid_body_kernel_launches=dict(rb.LAUNCHES),
         top_kernels=[dict(name=e.key[:90], calls=e.count,
                           device_ms=_device_us(e) / 1e3) for e in top])
     for k in result["top_kernels"]:

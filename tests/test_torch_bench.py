@@ -42,6 +42,7 @@ from go2_rl_gym_tpu_torch.env.config import Go2Cfg as TCfg
 from go2_rl_gym_tpu_torch.env.config import go2_moe_cts_train_cfg as t_train_cfg
 from go2_rl_gym_tpu_torch.env.go2_env import Go2Env as TEnv
 from go2_rl_gym_tpu_torch.export import importer as timp
+from go2_rl_gym_tpu_torch.ops import rigid_body as rb
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
 from go2_rl_gym_tpu_torch.tools import bench_scaling
 from go2_rl_gym_tpu_torch.train.runner import OnPolicyRunner as TRunner
@@ -117,13 +118,15 @@ def test_entry_point_raises_without_a_card():
         bench.main([])
 
 
-@pytest.mark.parametrize("counter", ["captures", "patch_launches"])
+@pytest.mark.parametrize("counter", ["captures", "patch_launches",
+                                     "rigid_body_launches"])
 def test_guard_breach_prints_error_and_exits_non_zero(
         monkeypatch, capsys, counter):
     """The third call of the step is the first dispatch's: it moves one
     counter, as a second capture or a rollout run from the host would."""
-    table, key = ((graphs.CAPTURES, "train_step") if counter == "captures"
-                  else (tp.LAUNCHES, "extract_patches"))
+    table, key = {"captures": (graphs.CAPTURES, "train_step"),
+                  "patch_launches": (tp.LAUNCHES, "extract_patches"),
+                  "rigid_body_launches": (rb.LAUNCHES, "rigid_body")}[counter]
     monkeypatch.setitem(table, key, table[key])     # restored afterwards
     train_step = TRunner.train_step
     calls = []
@@ -149,8 +152,10 @@ def test_guard_breach_prints_error_and_exits_non_zero(
     assert (line["metric"], line["value"], line["unit"]) == (
         "env_steps_per_s_per_chip", 0.0, "env-steps/s")
     assert "after the first dispatch" in line["error"]
-    want = ("1 captures of the train step (want 0)" if counter == "captures"
-            else "1 patch launches from the host")
+    want = {"captures": "1 captures of the train step (want 0)",
+            "patch_launches": "1 patch launches from the host",
+            "rigid_body_launches": "1 rigid-body launches from the host"
+            }[counter]
     assert want in line["error"]
     assert len(calls) == 3
 

@@ -66,7 +66,7 @@ def test_dryrun_multichip_on_two_gloo_ranks(capsys):
             assert bool(torch.isfinite(res["metrics"][k]).all()), k
         # the counter counts kernel launches; the CPU's plain version none
         # (chip_smoke.py's phase graft sees one per policy step per rank)
-        assert res["launches"] == {"extract_patches": 0}
+        assert res["launches"] == {"extract_patches": 0, "rigid_body": 0}
         assert "deprecat" not in res["log"].lower(), res["log"][-2000:]
     # data-parallel: the parameters' losses agree across the ranks
     assert float(results[0]["metrics"]["value_loss"]) == float(

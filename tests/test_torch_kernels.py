@@ -1,5 +1,6 @@
-"""PyTorch port on the card: the hand-written CUDA kernels against their
-plain versions, the card's env step and CTS, PPO and recurrent-PPO updates
+"""PyTorch port on the card: the hand-written CUDA kernels (the terrain
+patch copy and the substep's rigid-body dynamics) against their plain
+versions, the card's env step and CTS, PPO and recurrent-PPO updates
 against the CPU path, and checkpoints of runs on the card restored on the
 card.
 
@@ -12,8 +13,13 @@ imports torch only, so it runs on a machine without JAX:
 import pytest
 import torch
 
+from go2_rl_gym_tpu_torch.ops import rigid_body as rb
 from go2_rl_gym_tpu_torch.ops import terrain_patches as tp
+from go2_rl_gym_tpu_torch.sim import engine as te
+from go2_rl_gym_tpu_torch.sim import tengine as tt
+from go2_rl_gym_tpu_torch.sim.model import go2_model
 from go2_rl_gym_tpu_torch.tools import card_check
+
 
 
 def _card():
@@ -68,14 +74,91 @@ def test_extract_patches_wrapper_refuses_bad_input():
     assert tp.extract_patches(ch, org[:0]).shape == (0, 3, 1024)
 
 
+def _rb_inputs(N, seed, dev):
+    """The rigid-body stage's inputs on `dev`: a state stored N-major and
+    seen batch-last (as the substep hands it over), joints beyond both
+    limits, randomised mass, COM and inertia."""
+    model = go2_model()
+    layout = te.quad_layout(model)
+    params = te.SimParams()
+    g = torch.Generator().manual_seed(seed)
+    quat = torch.randn((N, 4), generator=g)
+    lo = torch.as_tensor(model.dof_lower, dtype=torch.float32)
+    hi = torch.as_tensor(model.dof_upper, dtype=torch.float32)
+    q = lo + (hi - lo) * (1.6 * torch.rand((N, 12), generator=g) - 0.3)
+    state = te.SimState(
+        base_pos=torch.randn((N, 3), generator=g),
+        base_quat=quat / quat.norm(dim=1, keepdim=True), q=q,
+        base_lin_vel=torch.randn((N, 3), generator=g),
+        base_ang_vel=2 * torch.randn((N, 3), generator=g),
+        qd=5 * torch.randn((N, 12), generator=g))
+    s = tt.to_t(te.SimState(*[x.to(dev) for x in state]))
+    tau = (10 * torch.randn((12, N), generator=g)).to(dev)
+    kd = (0.3 + torch.rand((N, 12), generator=g)).to(dev).T
+    f32 = dict(dtype=torch.float32)
+    dyn_t = dict(
+        mass=torch.as_tensor(model.mass, **f32)[:, None]
+        * (0.7 + 0.6 * torch.rand((13, N), generator=g)),
+        com=torch.as_tensor(model.com, **f32)[:, :, None]
+        + 0.02 * torch.randn((13, 3, N), generator=g),
+        inertia=torch.as_tensor(model.inertia, **f32)[:, :, :, None]
+        * (0.7 + 0.6 * torch.rand((13, 1, 1, N), generator=g)))
+    dyn_t = {k: v.to(dev).contiguous() for k, v in dyn_t.items()}
+    st = tt._static(model, layout, dev, params.gravity)
+    return layout, params, dyn_t, s, tau, kd, st
+
+
+def _rb_flat(out):
+    return tuple(out[:-1]) + tuple(out.si)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [33, 300, 4096])
+def test_rigid_body_kernel_matches_plain(N):
+    """Bit for bit from 33 envs up (at 1 env torch.sum reduces the
+    contractions' small dimensions as the fastest-moving ones, in another
+    order; the benchmark's cells run 2048 to 8192)."""
+    dev = _card()
+    args = _rb_inputs(N, seed=N, dev=dev)
+    before = rb.LAUNCHES["rigid_body"]
+    got = _rb_flat(tt.rigid_body(*args))
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES["rigid_body"] == before + 1
+    want = _rb_flat(tt.rigid_body_plain(*args))
+    # bit for bit: the kernel rounds and adds as the plain version does on
+    # the card (ops/csrc/rigid_body.cu, "Numbers")
+    for x, y in zip(got, want):
+        assert x.shape == y.shape and bool(torch.isfinite(x).all())
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_rigid_body_wrapper_refuses_bad_input():
+    dev = _card()
+    layout, params, dyn_t, s, tau, kd, st = _rb_inputs(8, seed=0, dev=dev)
+    with pytest.raises(TypeError):
+        tt.rigid_body(layout, params, dyn_t, s, tau.double(), kd, st)
+    with pytest.raises(ValueError):
+        tt.rigid_body(layout, params, dyn_t, s, tau.cpu(), kd, st)
+    with pytest.raises(ValueError):
+        tt.rigid_body(layout, params, dyn_t, s, tau[:6], kd, st)
+    nm = dict(dyn_t, inertia=torch.movedim(
+        dyn_t["inertia"].permute(3, 0, 1, 2).contiguous(), 0, -1))
+    with pytest.raises(ValueError):
+        tt.rigid_body(layout, params, nm, s, tau, kd, st)
+
+
 @pytest.mark.gpu
 def test_env_on_card_matches_cpu():
     """4 rough-terrain steps from one state on both devices (tolerances of
-    tests/test_torch_env.py), each launching the patch kernel once."""
+    tests/test_torch_env.py), each launching the patch kernel once and the
+    rigid-body kernel once a substep."""
     _card()
     before = tp.LAUNCHES["extract_patches"]
+    before_rb = rb.LAUNCHES["rigid_body"]
     card_check.env_card_vs_cpu(steps=4)
     assert tp.LAUNCHES["extract_patches"] == before + 4
+    assert rb.LAUNCHES["rigid_body"] == before_rb + 16
 
 
 @pytest.mark.gpu

@@ -152,7 +152,7 @@ def test_num_devices_one_trains_on_a_mesh_of_one(tmp_path, monkeypatch,
     out = capsys.readouterr().out
     assert "data-parallel over 1 ranks: rank 0 on cpu, envs [0, 4)" in out
     assert out.splitlines()[-1] == (
-        'launches: {"rank": 0, "extract_patches": 0}')
+        'launches: {"rank": 0, "extract_patches": 0, "rigid_body": 0}')
     assert runner.mesh.world == 1 and runner.current_iteration == 1
     ck = torch.load(os.path.join(runner.log_dir, "model_1.pt"),
                     weights_only=True)
